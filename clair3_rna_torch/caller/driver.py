@@ -1,0 +1,167 @@
+"""Top-level calling orchestration (the run_clair3_rna equivalent).
+
+Resolves contigs/regions, loads weights and runs the pileup pass on one
+device (run_clair3_rna:668-878 workflow, without shell process plumbing).
+The phased second pass and sharded calling are not ported yet.
+"""
+
+import logging
+import os
+
+from clair3_rna_torch import config, resolve_device
+from clair3_rna_torch.caller.decode import CallConfig
+from clair3_rna_torch.caller.pipeline import run_calling
+from clair3_rna_torch.io.bam import BamReader
+from clair3_rna_torch.io.bed import BedRegions
+from clair3_rna_torch.io.fasta import FastaFile
+from clair3_rna_torch.io.vcf import VcfReader
+from clair3_rna_torch.postprocess.sort_vcf import MAJOR_CONTIGS_ORDER
+
+logger = logging.getLogger(__name__)
+
+
+def resolve_contigs(bam: BamReader, fasta: FastaFile, ctg_name=None,
+                    include_all_ctgs=False, bed_regions=None):
+    """Contig intersection logic (run_clair3_rna:314-451): BAM ∩ FASTA,
+    restricted to major contigs unless include_all_ctgs, further filtered by
+    explicit list / bed."""
+    contigs = [c for c in fasta.contigs if c in bam.ref_index]
+    if ctg_name:
+        wanted = ctg_name.split(",") if isinstance(ctg_name, str) else list(ctg_name)
+        contigs = [c for c in contigs if c in set(wanted)]
+    elif not include_all_ctgs:
+        major = set(MAJOR_CONTIGS_ORDER)
+        major_found = [c for c in contigs if c in major]
+        if major_found:
+            contigs = major_found
+    if bed_regions is not None:
+        contigs = [c for c in contigs if not bed_regions.is_empty(c)]
+    return contigs
+
+
+def load_model(model_path, add_indel_length=False, phased=False,
+               device="cuda"):
+    """Load (or random-init) weights onto `device`; returns (params,
+    forward) with params a PileupNet and forward the wire forward."""
+    from clair3_rna_torch.models.network import (init_params,
+                                                 make_wire_forward_fn)
+    from clair3_rna_torch.models.params_io import (params_from_numpy,
+                                                   resolve_params)
+    device = resolve_device(device)
+    if model_path:
+        params = params_from_numpy(
+            resolve_params(model_path, add_indel_length=add_indel_length),
+            device=device)
+    else:
+        logger.warning("[WARNING] no --model_path given: using RANDOM weights "
+                       "(testing only, calls will be meaningless)")
+        params = init_params(0, add_indel_length=add_indel_length,
+                             phased=phased, device=device)
+    _, forward = make_wire_forward_fn(add_indel_length=add_indel_length)
+    return params, forward
+
+
+def _resolve_inputs(args):
+    """Shared contig/bed/known-site resolution."""
+    fasta = FastaFile(args.ref_fn)
+    bam = BamReader(args.bam_fn)
+
+    bed_regions = None
+    ctg_filter = args.ctg_name
+    if args.region:
+        from clair3_rna_torch.cli import _parse_region
+        ctg, bed_regions = _parse_region(args.region)
+        ctg_filter = ctg
+    elif args.bed_fn:
+        bed_regions = BedRegions.from_file(args.bed_fn)
+
+    contigs = resolve_contigs(bam, fasta, ctg_name=ctg_filter,
+                              include_all_ctgs=args.include_all_ctgs,
+                              bed_regions=bed_regions)
+    if not contigs:
+        raise SystemExit("[ERROR] no contigs shared between BAM and reference "
+                         "(use --include_all_ctgs for non-standard names)")
+    logger.info("[INFO] calling %d contig(s): %s", len(contigs),
+                ",".join(contigs[:8]) + ("..." if len(contigs) > 8 else ""))
+
+    known_positions = None
+    if args.vcf_fn:
+        reader = VcfReader(args.vcf_fn)
+        known_positions = {}
+        for (ctg, pos) in reader.variant_dict:
+            known_positions.setdefault(ctg, []).append(pos - 1)
+    return contigs, bed_regions, known_positions
+
+
+def _attach_run_log(output_dir):
+    """Duplicate log records into <output_dir>/run_clair3_rna_torch.log
+    (the reference's Tee, run_clair3_rna:75-90)."""
+    path = os.path.abspath(
+        os.path.join(output_dir, "run_clair3_rna_torch.log"))
+    root = logging.getLogger()
+    if any(isinstance(h, logging.FileHandler)
+           and getattr(h, "baseFilename", None) == path
+           for h in root.handlers):
+        return
+    handler = logging.FileHandler(path)
+    handler.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
+    root.addHandler(handler)
+
+
+def run_full_calling(args, cfg, call_cfg: CallConfig):
+    """One unphased calling run on args.device -> (output paths, CallStats)
+    ((paths, None) for --dry_run)."""
+    if getattr(args, "threads", None):
+        # the native tile builder partitions the position axis across this
+        # many threads (clair3_rna_torch/native: tile_thread_count)
+        os.environ.setdefault("CLAIR3_RNA_TORCH_NATIVE_THREADS",
+                              str(args.threads))
+    if getattr(args, "dry_run", False):
+        from clair3_rna_torch.pileup.chunk import plan_chunks
+        contigs, bed_regions, _ = _resolve_inputs(args)
+        fasta = FastaFile(args.ref_fn)
+        tasks = plan_chunks(fasta, contigs=contigs,
+                            chunk_size=args.chunk_size or config.CHUNK_SIZE)
+        print(f"[DRY RUN] {len(contigs)} contig(s), {len(tasks)} chunk(s):")
+        for t in tasks:
+            print(f"  {t.ctg_name}\t{t.start}\t{t.end}")
+        return [], None
+    device = resolve_device(getattr(args, "device", None))
+    os.makedirs(args.output_dir, exist_ok=True)
+    _attach_run_log(args.output_dir)
+    contigs, bed_regions, known_positions = _resolve_inputs(args)
+    from clair3_rna_torch.caller.backend import resolve_backend
+    backend = resolve_backend(getattr(args, "pileup_backend", None))
+    args.pileup_backend = backend
+
+    params, forward = load_model(args.model_path, phased=cfg.phased,
+                                 device=device)
+    rediportal_path = args.readiportal_source_fn \
+        if args.tag_variant_using_readiportal else None
+    prefix = getattr(args, "output_prefix", None) or "output"
+    output_path = os.path.join(args.output_dir, prefix + ".vcf")
+    outputs, stats = run_calling(
+        args.bam_fn, args.ref_fn, output_path,
+        cfg=cfg, call_cfg=call_cfg, params=params, forward=forward,
+        contigs=contigs, chunk_size=args.chunk_size,
+        rediportal_path=rediportal_path,
+        output_no_tagging_path=os.path.join(
+            args.output_dir, prefix + "_no_editing_tagging.vcf"),
+        sample_name=args.sample_name,
+        cmd_line=" ".join(os.sys.argv),
+        compress=not args.no_compress,
+        known_vcf_positions=known_positions,
+        bed_regions=bed_regions,
+        manifest_dir=os.path.join(args.output_dir, "tmp"),
+        resume=getattr(args, "resume", False),
+        joblog=getattr(args, "joblog", None),
+        pileup_backend=backend,
+    )
+    logger.info("[INFO] pileup calling finished: %s", ", ".join(outputs))
+    if getattr(args, "remove_intermediate_dir", False):
+        import shutil
+        tmp_dir = os.path.join(args.output_dir, "tmp")
+        if os.path.isdir(tmp_dir):
+            shutil.rmtree(tmp_dir)
+            logger.info("[INFO] removed intermediate directory %s", tmp_dir)
+    return outputs, stats
