@@ -14,16 +14,27 @@ Phases (any failed check raises; the exit code is then non-zero):
    with rank ties, empty tiles and pad rows; counts and ranks must be
    bit-identical. The kernel alone (launches replayed from a CUDA graph),
    its wrapper and the plain version are timed with CUDA events at the
-   main path's shape;
+   main path's shape. Then the event scatter kernel (K3) on the events of
+   the same chunk as the events wire stages them, the deep chunk, and
+   random events with rank ties, duplicates, empty tiles, stars, pads and
+   negative positions; and the channel-count kernel (K4) on that chunk's
+   pure-array builder calls (18-channel base+star, ins/del, 4-group) and a
+   random 30-channel case. Both bit-identical to their plain versions,
+   timed the same way, and beside one library call of the same function
+   (K3: torch.bincount + torch.scatter_reduce "amin", two calls; K4:
+   torch.bincount);
 4. network: full-width PileupNet on the card and on the CPU with the same
    seeded weights over real candidate windows; probabilities within 1e-4,
    and rows bit-identical across the pipeline's batch buckets on the card;
    logged beside it, how far rows move without the fixed slab and what one
    pass costs at each slab size;
-5. end to end: `call` through the CLI entry point on a simulated dataset,
-   host route, fused route (v2 wire) and fused route (nibble wire); the
-   three VCF bodies must be identical and each fused run must launch its
-   kernel.
+5. end to end: `call` through the CLI entry point on a simulated dataset:
+   host route, fused route (v2 wire, nibble wire), then the fused route on
+   the events wire (CLAIR3_RNA_TORCH_FUSED_MODE=events, K3) and the host
+   route on the pure-array builder with its counts on the card
+   (CLAIR3_RNA_TORCH_NO_NATIVE=1, CLAIR3_RNA_TORCH_PILEUP_BACKEND=kernel,
+   K4). Every VCF body must equal the host route's, each kernel must
+   launch on its own path and on no other.
 
 Prints one {"kernels": [...]} line and, last, the
 {"ok": true, "device": {...}} line. Exits non-zero without CUDA, and when
@@ -83,12 +94,29 @@ def cuda_time(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def kernel_only_ms(wire, t, want, iters=20, reps=5):
-    """Device milliseconds of the tilelet kernel alone: `iters` launches
-    with precomputed row offsets and preallocated outputs, captured in one
-    CUDA graph, so the wrapper's searchsorted, allocations and Python
-    enqueue are left out. The last replay's outputs must equal `want` (the
-    plain version's). Launches made here bypass the wrapper's count."""
+def graph_ms(launch, iters=20, reps=5):
+    """Device milliseconds of one `launch()` alone: `iters` launches
+    captured in one CUDA graph and replayed, so allocations and Python
+    enqueue are left out."""
+    import torch
+
+    launch()
+    sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            launch()
+    graph.replay()
+    sync()
+    return cuda_time(graph.replay, iters=reps, warmup=1) / iters
+
+
+def kernel_only_ms(wire, t, want):
+    """Device milliseconds of the tilelet kernel alone (graph_ms), with
+    precomputed row offsets and preallocated outputs, so the wrapper's
+    searchsorted, allocations and Python enqueue are left out. The last
+    replay's outputs must equal `want` (the plain version's). Launches made
+    here bypass the wrapper's count."""
     import torch
 
     from clair3_rna_torch.csrc import launch_tilelet
@@ -109,15 +137,7 @@ def kernel_only_ms(wire, t, want, iters=20, reps=5):
                        t["rank"], t["strand"], t["hp"], n_tiles, t["width"],
                        counts, grank)
 
-    launch()
-    sync()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            launch()
-    graph.replay()
-    sync()
-    ms = cuda_time(graph.replay, iters=reps, warmup=1) / iters
+    ms = graph_ms(launch)
     if not (torch.equal(counts, want[0]) and torch.equal(grank, want[1])):
         fail(f"tilelet {wire}: graph-launched kernel != plain")
     return ms
@@ -284,6 +304,254 @@ def kernel_phase(work, fasta, bam):
     return results
 
 
+EV_KEYS = ("ev_pos", "ev_chan", "ev_group", "ev_rank", "ev_off")
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth and
+    the operations over the non-tensor float32 rate."""
+    bytes_ms = n_bytes / H100_HBM_BPS * 1e3
+    ops_ms = n_ops / H100_FP32_OPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def staged_events(bam_path, fasta_path, ctg, start, end):
+    """Stage one chunk the way the fused route's events wire does:
+    ({EV_KEYS: numpy array}, padded width)."""
+    from clair3_rna_torch import config
+    from clair3_rna_torch.io.fasta import FastaFile
+    from clair3_rna_torch.ops.fused_pileup import stage_chunk
+    from clair3_rna_torch.pileup.chunk import (extract_region_events,
+                                               open_bam, ref_codes_from)
+
+    cfg = config.PileupConfig()
+    fasta = FastaFile(fasta_path)
+    lo = max(0, start - config.NO_OF_POSITIONS)
+    hi = min(fasta.contig_length(ctg), end + config.NO_OF_POSITIONS)
+    codes = ref_codes_from(fasta.fetch(ctg, lo, hi))
+    data = extract_region_events(open_bam(bam_path), ctg, lo, hi, cfg)
+    st = stage_chunk(data, codes, cfg, start, end)
+    return {k: getattr(st, k) for k in EV_KEYS}, st.width
+
+
+def random_events(rng, n_tiles=64, n=200_000):
+    """Tile-bucketed random events: rank ties and duplicate events (ranks
+    0..39), a quarter of the tiles empty, a tenth of the events on eight
+    deep columns, stars (group 6) and group-7 events inside [0, W), pads at
+    W and negative positions (both inert)."""
+    import numpy as np
+
+    from clair3_rna_torch.ops import fused_scatter as fsc
+
+    width = n_tiles * fsc.POS_TILE
+    live = rng.choice(n_tiles, size=n_tiles * 3 // 4, replace=False)
+    pos = (rng.choice(live, n) * fsc.POS_TILE
+           + rng.integers(0, fsc.POS_TILE, n))
+    deep = rng.choice(pos, 8)
+    pos[:n // 10] = deep[rng.integers(0, 8, n // 10)]
+    pos = np.concatenate([pos, np.full(n // 50, width),
+                          rng.integers(-5, 0, 10)])
+    m = len(pos)
+    return fsc.bucket_events(pos, rng.integers(0, 18, m),
+                             rng.integers(0, 8, m), rng.integers(0, 40, m),
+                             width), width
+
+
+def scatter_phase(fasta, bam):
+    """The event scatter kernel (K3) against its plain version on every
+    case, bit-identical; timings at the main path's shape (the events of
+    the first chr1 chunk)."""
+    import numpy as np
+    import torch
+
+    from clair3_rna_torch.csrc import launch_fused_scatter
+    from clair3_rna_torch.ops import fused_scatter as fsc
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED)
+    cases = {"chunk": staged_events(bam, fasta, "chr1", 0, CHUNK),
+             "deep": staged_events(bam, fasta, "chr3", 0, 20_000),
+             "random": random_events(rng)}
+    max_err = 0.0
+    res = {}
+    for name, (ev, width) in cases.items():
+        t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in ev.items()}
+        args = [t[k] for k in EV_KEYS]
+        counts, grank = fsc.fused_scatter(*args, width)
+        pc, pg = fsc.fused_scatter_plain(*args, width)
+        sync()
+        err = max(float((counts - pc).abs().max()),
+                  float((grank - pg).abs().max()))
+        max_err = max(max_err, err)
+        if not (torch.equal(counts, pc) and torch.equal(grank, pg)):
+            fail(f"fused_scatter {name}: kernel != plain (max abs err "
+                 f"{err})")
+        n_ev = len(ev["ev_pos"])
+        log(f"fused_scatter {name:6s}: bit-identical to plain ({n_ev} "
+            f"events, W={width}, {int(counts.sum())} counts)")
+        if name != "chunk":
+            continue
+        n_tiles = width // fsc.POS_TILE
+        oc, og = torch.empty_like(pc), torch.empty_like(pg)
+        ms = graph_ms(lambda: launch_fused_scatter(*args, n_tiles, width,
+                                                   oc, og))
+        if not (torch.equal(oc, pc) and torch.equal(og, pg)):
+            fail("fused_scatter: graph-launched kernel != plain")
+        wrapper_ms = cuda_time(lambda: fsc.fused_scatter(*args, width))
+        plain_ms = cuda_time(lambda: fsc.fused_scatter_plain(*args, width),
+                             iters=5)
+        # the library yardstick: the two reductions as one PyTorch call
+        # each, on keys built beforehand (the chunk has no inert events)
+        pos = t["ev_pos"].long()
+        ckey = pos * fsc.C_PAD + t["ev_chan"].long()
+        rkey = pos * fsc.G_PAD + t["ev_group"].long()
+        rinit = torch.full((width * fsc.G_PAD,), int(fsc.RANK_INF_F),
+                           dtype=torch.int32, device=dev)
+
+        def library():
+            return (torch.bincount(ckey, minlength=width * fsc.C_PAD),
+                    torch.scatter_reduce(rinit, 0, rkey, t["ev_rank"],
+                                         "amin"))
+
+        lc, lr = library()
+        if not (torch.equal(lc.reshape(width, fsc.C_PAD).T.float(), pc)
+                and torch.equal(lr.reshape(width, fsc.G_PAD).T[:6].float(),
+                                pg[:6])):
+            fail("fused_scatter: the library yardstick computes another "
+                 "function")
+        library_ms = cuda_time(library)
+        n_bytes = (sum(v.nbytes for v in ev.values())
+                   + (fsc.C_PAD + fsc.G_PAD) * width * 4)
+        bound_ms, bound_by = bound(n_bytes, 2 * n_ev)
+        res = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "events": n_ev, "bytes": n_bytes}
+        log(f"fused_scatter at the main path's shape ({n_ev} events, "
+            f"W={width}): kernel alone {ms:.4f} ms, wrapper "
+            f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"(bincount + scatter_reduce amin) {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({n_bytes} B at 3.35 TB/s)")
+    res["max_abs_err"] = max_err
+    return res
+
+
+def builder_count_calls(fasta, bam, ctg, start, end):
+    """[(pos, chan, length, n_channels)] of every channel-count call the
+    pure-array builder makes for one chunk, recorded while it runs with the
+    kernel backend on the card."""
+    import numpy as np
+
+    from clair3_rna_torch import config
+    from clair3_rna_torch.io.fasta import FastaFile
+    from clair3_rna_torch.ops import pileup_kernel as tpk
+    from clair3_rna_torch.pileup.chunk import (ChunkTask, build_chunk_tensors,
+                                               open_bam)
+
+    calls = []
+    orig = tpk.pileup_counts
+
+    def record(pos, chan, length, n_channels, backend, device):
+        calls.append((np.array(pos), np.array(chan), length, n_channels))
+        return orig(pos, chan, length, n_channels, backend, device)
+
+    tpk.pileup_counts = record
+    os.environ["CLAIR3_RNA_TORCH_PILEUP_BACKEND"] = "kernel"
+    try:
+        build_chunk_tensors(open_bam(bam, prefer_native=False),
+                            FastaFile(fasta), ChunkTask(ctg, start, end),
+                            config.PileupConfig(), device=DEVICE)
+    finally:
+        tpk.pileup_counts = orig
+        os.environ.pop("CLAIR3_RNA_TORCH_PILEUP_BACKEND")
+    return calls
+
+
+def counts_phase(fasta, bam):
+    """The channel-count kernel (K4) against its plain version and the
+    host bincount on the first chr1 chunk's builder calls and a random
+    30-channel case, bit-identical; timings at the largest builder call
+    (base+star, 18 channels)."""
+    import numpy as np
+    import torch
+
+    from clair3_rna_torch.csrc import launch_pileup_counts
+    from clair3_rna_torch.ops import pileup_kernel as tpk
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED)
+    calls = builder_count_calls(fasta, bam, "chr1", 0, CHUNK)
+    if [c[3] for c in calls] != [18, 18, 4]:
+        fail(f"builder count calls: channels {[c[3] for c in calls]}, "
+             "expected base+star 18, ins/del 18, groups 4")
+    cases = dict(zip(("base+star", "ins/del", "groups"), calls))
+    length = CHUNK + 66
+    centers = rng.integers(0, length, 2000)
+    pos = np.clip(rng.choice(centers, 400_000)
+                  + rng.integers(-40, 40, 400_000), 0, length - 1)
+    pos = np.concatenate([pos, np.full(100, -1)])    # inert pads
+    cases["random_30ch"] = (pos, rng.integers(0, 30, len(pos)), length, 30)
+    max_err = 0.0
+    for name, (pos, chan, length, n_ch) in cases.items():
+        ev_pos, ev_chan, ev_off, length_pad = tpk.prepare(pos, chan, length)
+        t = [torch.from_numpy(a).to(dev) for a in (ev_pos, ev_chan, ev_off)]
+        k = tpk.pileup_counts_kernel(*t, length_pad)
+        p = tpk.pileup_counts_plain(*t, length_pad)
+        sync()
+        err = float((k - p).abs().max())
+        max_err = max(max_err, err)
+        valid = pos >= 0
+        host = np.bincount(pos[valid] * n_ch + chan[valid],
+                           minlength=length * n_ch).reshape(length, n_ch)
+        if not (torch.equal(k, p) and np.array_equal(
+                k[:length, :n_ch].cpu().numpy(), host)):
+            fail(f"pileup_counts {name}: kernel != plain or host bincount "
+                 f"(max abs err vs plain {err})")
+        log(f"pileup_counts {name:11s}: bit-identical to plain and the host "
+            f"bincount ({len(pos)} events, length {length}, {n_ch} "
+            f"channels)")
+    pos, chan, length, n_ch = max(calls, key=lambda c: len(c[0]))
+    ev_pos, ev_chan, ev_off, length_pad = tpk.prepare(pos, chan, length)
+    t = [torch.from_numpy(a).to(dev) for a in (ev_pos, ev_chan, ev_off)]
+    want = tpk.pileup_counts_plain(*t, length_pad)
+    out = torch.empty_like(want)
+    ms = graph_ms(lambda: launch_pileup_counts(
+        *t, length_pad // tpk.POS_TILE, out))
+    if not torch.equal(out, want):
+        fail("pileup_counts: graph-launched kernel != plain")
+    wrapper_ms = cuda_time(lambda: tpk.pileup_counts_kernel(*t, length_pad))
+    plain_ms = cuda_time(lambda: tpk.pileup_counts_plain(*t, length_pad),
+                         iters=5)
+    key = torch.from_numpy(pos.astype(np.int64) * n_ch + chan).to(dev)
+    lib = torch.bincount(key, minlength=length * n_ch)
+    if not torch.equal(lib.reshape(length, n_ch).to(torch.int32),
+                       want[:length, :n_ch]):
+        fail("pileup_counts: the library yardstick computes another "
+             "function")
+    library_ms = cuda_time(lambda: torch.bincount(key,
+                                                  minlength=length * n_ch))
+    # what the builder pays per call: host bucketing, copies both ways
+    t0 = time.perf_counter()
+    for _ in range(5):
+        tpk.pileup_counts(pos, chan, length, n_ch, "kernel", DEVICE)
+    dispatch_ms = (time.perf_counter() - t0) / 5 * 1e3
+    n_bytes = (ev_pos.nbytes + ev_chan.nbytes + ev_off.nbytes
+               + length_pad * tpk.C_PAD * 4)
+    bound_ms, bound_by = bound(n_bytes, len(pos))
+    res = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "dispatch_ms": dispatch_ms,
+           "events": len(pos), "bytes": n_bytes, "max_abs_err": max_err}
+    log(f"pileup_counts at the main path's largest call ({len(pos)} events, "
+        f"length {length}, {n_ch} channels): kernel alone {ms:.4f} ms, "
+        f"wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"(bincount) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({n_bytes} B at 3.35 TB/s); the builder's whole call (bucketing, "
+        f"copies both ways) {dispatch_ms:.4f} ms on the host clock")
+    return res
+
+
 def network_phase(fasta, bam):
     import numpy as np
     import torch
@@ -367,31 +635,46 @@ def e2e_phase(work, fasta, bam):
     from clair3_rna_torch.cli import main as cli_main
     from clair3_rna_torch.models.network import init_params
     from clair3_rna_torch.models.params_io import save_params
+    from clair3_rna_torch.ops import fused_scatter as fsc
+    from clair3_rna_torch.ops import pileup_kernel as tpk
     from clair3_rna_torch.ops import tilelet as tlt
 
     weights = save_params(os.path.join(work, "weights.npz"),
                           init_params(SEED, device=DEVICE))
+    counters = (tlt, fsc, tpk)
     runs = {}
     # each route once cold (first run in the process), then host and
-    # fused v2 again warm
-    for name, backend, wire in (("host", "host", "v2"),
-                                ("fused_v2", "fused", "v2"),
-                                ("fused_nibble", "fused", "nibble"),
-                                ("host_warm", "host", "v2"),
-                                ("fused_v2_warm", "fused", "v2")):
+    # fused v2 again warm, then the two paths of K3 and K4
+    for name, backend, env in (
+            ("host", "host", {}),
+            ("fused_v2", "fused", {"CLAIR3_RNA_TORCH_TILELET_WIRE": "v2"}),
+            ("fused_nibble", "fused",
+             {"CLAIR3_RNA_TORCH_TILELET_WIRE": "nibble"}),
+            ("host_warm", "host", {}),
+            ("fused_v2_warm", "fused",
+             {"CLAIR3_RNA_TORCH_TILELET_WIRE": "v2"}),
+            ("fused_events", "fused", {"CLAIR3_RNA_TORCH_FUSED_MODE": "events"}),
+            ("host_pure_kernel", "host",
+             {"CLAIR3_RNA_TORCH_NO_NATIVE": "1",
+              "CLAIR3_RNA_TORCH_PILEUP_BACKEND": "kernel"})):
         out = os.path.join(work, f"out_{name}")
-        os.environ["CLAIR3_RNA_TORCH_TILELET_WIRE"] = wire
+        os.environ.update(env)
         sync()
-        tlt.reset_launches()
+        for mod in counters:
+            mod.reset_launches()
         t0 = time.time()
-        outputs, stats = cli_main([
-            "call", "-B", bam, "-R", fasta, "-o", out,
-            "--model_path", weights, "--device", DEVICE,
-            "--pileup_backend", backend, "--chunk_size", str(CHUNK),
-            "--no_compress", "--include_all_ctgs"])
-        sync()
+        try:
+            outputs, stats = cli_main([
+                "call", "-B", bam, "-R", fasta, "-o", out,
+                "--model_path", weights, "--device", DEVICE,
+                "--pileup_backend", backend, "--chunk_size", str(CHUNK),
+                "--no_compress", "--include_all_ctgs"])
+            sync()
+        finally:
+            for key in env:
+                os.environ.pop(key)
         wall = time.time() - t0
-        launches = dict(tlt.launches)
+        launches = {k: v for mod in counters for k, v in mod.launches.items()}
         with open(outputs[0]) as f:
             body = [line for line in f if not line.startswith("#")]
         runs[name] = {"wall_s": wall, "candidates": stats.candidates,
@@ -406,7 +689,6 @@ def e2e_phase(work, fasta, bam):
             f"sites ({stats.candidates / wall:.1f} sites/s), {len(body)} "
             f"VCF rows, kernel launches {launches}, fused counters "
             f"{stats.fused}")
-    os.environ.pop("CLAIR3_RNA_TORCH_TILELET_WIRE", None)
     for name in runs:
         if runs[name]["body"] != runs["host"]["body"]:
             diff = [(a, b) for a, b in zip(runs["host"]["body"],
@@ -416,19 +698,22 @@ def e2e_phase(work, fasta, bam):
                  f"rows, first differences {diff[:3]}")
     if not runs["host"]["body"]:
         fail("no VCF rows")
-    for name in ("fused_v2", "fused_v2_warm"):
-        if runs[name]["launches"]["tilelet_expand_v2"] <= 0:
-            fail(f"{name} launched no tilelet_expand_v2 kernel")
-    if runs["fused_nibble"]["launches"]["tilelet_expand"] <= 0:
-        fail("fused nibble run launched no tilelet_expand kernel")
-    for name in ("host", "host_warm"):
-        if any(runs[name]["launches"].values()):
-            fail(f"{name} launched tilelet kernels: "
-                 f"{runs[name]['launches']}")
-    for name in ("fused_v2", "fused_nibble", "fused_v2_warm"):
+    # each kernel launches on its own paths and on no other
+    own = {"tilelet_expand_v2": ("fused_v2", "fused_v2_warm"),
+           "tilelet_expand": ("fused_nibble",),
+           "fused_scatter": ("fused_events",),
+           "pileup_counts": ("host_pure_kernel",)}
+    for fn, names in own.items():
+        for name, r in runs.items():
+            n = r["launches"][fn]
+            if name in names and n <= 0:
+                fail(f"{name} launched no {fn} kernel")
+            if name not in names and n != 0:
+                fail(f"{name} launched {fn} {n} times: {r['launches']}")
+    for name in ("fused_v2", "fused_nibble", "fused_v2_warm", "fused_events"):
         if runs[name]["fused"]["renorm_candidates"] <= 0:
             fail(f"{name}: the deep contig flagged no renorm candidate")
-    log(f"e2e: host, fused v2 and fused nibble VCF bodies identical "
+    log(f"e2e: {', '.join(runs)} VCF bodies identical "
         f"({len(runs['host']['body'])} rows)")
     return runs
 
@@ -469,26 +754,35 @@ def main():
         fasta, bam = make_dataset(work)
         log(f"dataset simulated in {time.time() - t0:.1f} s")
         kern = kernel_phase(work, fasta, bam)
+        kern["scatter"] = scatter_phase(fasta, bam)
+        kern["counts"] = counts_phase(fasta, bam)
         network_phase(fasta, bam)
         runs = e2e_phase(work, fasta, bam)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     kernels = []
-    for wire, name, fn, line in (
-            ("v2", "tilelet_expand_v2 (K1)", "tilelet_expand_v2",
-             "clair3_rna_tpu/ops/tilelet.py:283"),
+    for key, name, fn, run, src, line in (
+            ("v2", "tilelet_expand_v2 (K1)", "tilelet_expand_v2", "fused_v2",
+             "tilelet.cu", "clair3_rna_tpu/ops/tilelet.py:283"),
             ("nibble", "tilelet_expand (K2)", "tilelet_expand",
-             "clair3_rna_tpu/ops/tilelet.py:190")):
-        k = kern[wire]
+             "fused_nibble", "tilelet.cu",
+             "clair3_rna_tpu/ops/tilelet.py:190"),
+            ("scatter", "fused_scatter (K3)", "fused_scatter",
+             "fused_events", "scatter.cu",
+             "clair3_rna_tpu/ops/fused_scatter.py:131"),
+            ("counts", "pileup_counts (K4)", "pileup_counts",
+             "host_pure_kernel", "scatter.cu",
+             "clair3_rna_tpu/ops/pileup_kernel.py:36")):
+        k = kern[key]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "clair3_rna_torch/csrc/tilelet.cu", "replaces": line,
-            "launches": runs["fused_" + wire]["launches"][fn],
+            "source": f"clair3_rna_torch/csrc/{src}", "replaces": line,
+            "launches": runs[run]["launches"][fn],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "wrapper_ms": k["wrapper_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None})
+            "bound_by": k["bound_by"], "library_ms": k.get("library_ms")})
     summary = {name: {k: r[k] for k in ("wall_s", "candidates", "rows",
                                          "sites_per_s", "build_s", "infer_s",
                                          "decode_s", "fused")}

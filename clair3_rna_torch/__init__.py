@@ -10,7 +10,8 @@ Layering (bottom-up):
   native       -- C++ BAM decode, tile builder and packed-read extractor
   pileup       -- read events, channel-count builder, packed read rows
   models       -- PyTorch Bi-LSTM pileup network + weight I/O
-  csrc, ops    -- CUDA tilelet expansion kernel, fused chunk pass
+  csrc, ops    -- CUDA kernels (tilelet expansion, event scatter, channel
+                  counts), fused chunk pass
   caller       -- pipeline, backend choice, host genotype decode -> VCF
   postprocess  -- merge/sort/LowQual/REDIportal tagging
 

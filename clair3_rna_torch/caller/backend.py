@@ -28,9 +28,9 @@ def resolve_backend(requested=None):
     """Final backend from the CLI flag / env var / auto.
 
     Precedence: explicit argument, then CLAIR3_RNA_TORCH_PILEUP_BACKEND,
-    then "host". "device" and "pallas" name the pure-array builder's count
-    backends (pileup/builder.py), so at the pipeline level they mean "not
-    the fused route"."""
+    then "host". "device" and "kernel" name the pure-array builder's count
+    backends (pileup/builder.py reads the same variable), so at the
+    pipeline level they mean "not the fused route"."""
     backend = (requested
                or os.environ.get("CLAIR3_RNA_TORCH_PILEUP_BACKEND")
                or "host")
@@ -38,7 +38,7 @@ def resolve_backend(requested=None):
         backend, reason = choose_backend()
         logger.info("[INFO] pileup backend auto-selected: %s (%s)",
                     backend, reason)
-    if backend in ("device", "pallas"):
+    if backend in ("device", "kernel"):
         return "host"
     if backend == "hybrid":
         raise NotImplementedError(

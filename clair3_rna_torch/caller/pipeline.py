@@ -370,7 +370,8 @@ def run_calling(bam_path: str, ref_path: str, output_path: str, *,
         the contig exactly, so fused candidate counts have no boundary
         double-counting (host-path halo duplicates are identical rows that
         the merge dedups away)."""
-        from clair3_rna_torch.pileup.chunk import ref_codes_from
+        from clair3_rna_torch.pileup.chunk import (extract_region_events,
+                                                   ref_codes_from)
         from clair3_rna_torch.pileup.packed import extract_region_packed
         window = config.NO_OF_POSITIONS
         contig_len = fasta.contig_length(task.ctg_name)
@@ -380,7 +381,12 @@ def run_calling(bam_path: str, ref_path: str, output_path: str, *,
         ref_hi = min(contig_len, task.end + config.EXPAND_REFERENCE_REGION)
         ref_seq = fasta.fetch(task.ctg_name, ref_lo, ref_hi)
         codes = ref_codes_from(ref_seq[row_lo - ref_lo: row_hi - ref_lo])
-        data = extract_region_packed(bam, task.ctg_name, row_lo, row_hi, cfg)
+        if fused_caller.mode == "packed":
+            data = extract_region_packed(bam, task.ctg_name, row_lo, row_hi,
+                                         cfg)
+        else:
+            data = extract_region_events(bam, task.ctg_name, row_lo, row_hi,
+                                         cfg)
         cover_allow = cand_allow = None
         if bed_regions is not None:
             from clair3_rna_torch.pileup.chunk import _extend_regions
@@ -422,7 +428,8 @@ def run_calling(bam_path: str, ref_path: str, output_path: str, *,
             bam, fasta, task, cfg,
             known_positions=known_vcf_positions.get(task.ctg_name)
             if known_vcf_positions else None,
-            bed_regions=bed_regions, return_features=True)
+            bed_regions=bed_regions, return_features=True,
+            device=params.device)
         return ("records", out), time.time() - t0
 
     # two workers keep two chunk builds in flight: the C++ tile builder and
@@ -737,7 +744,10 @@ def run_calling(bam_path: str, ref_path: str, output_path: str, *,
                             task.ctg_name, task.start, task.end, len(records))
         pump(force=True)
     finally:
-        prefetcher.shutdown(wait=False, cancel_futures=True)
+        # pending builds are cancelled and running ones waited for, so no
+        # thread of a finished or failed run touches the BAM handle or the
+        # device after run_calling returns or raises
+        prefetcher.shutdown(wait=True, cancel_futures=True)
         if joblog_f:
             joblog_f.close()
         if profiler is not None:

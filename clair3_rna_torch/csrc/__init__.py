@@ -17,7 +17,7 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("tilelet.cu",)
+SOURCES = ("tilelet.cu", "scatter.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -80,12 +80,9 @@ def _load(src):
     return lib
 
 
-def _tilelet_fn():
-    lib = _load("tilelet.cu")
-    fn = lib.tilelet_expand_launch
-    p = ctypes.c_void_p
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, p, p, p, p, p, p,
-                   ctypes.c_int, ctypes.c_longlong, p, p, p]
+def _fn(src, name, argtypes):
+    fn = getattr(_load(src), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -104,7 +101,10 @@ def launch_tilelet(wire, phased, codes, valid, row_off, rank, strand, hp,
     ops/tilelet._expand). Raises on a refused launch."""
     import torch
 
-    fn = _tilelet_fn()
+    p = ctypes.c_void_p
+    fn = _fn("tilelet.cu", "tilelet_expand_launch",
+             [ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, ctypes.c_int,
+              ctypes.c_longlong, p, p, p])
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     err = fn(1 if wire == "v2" else 0, 1 if phased else 0, _ptr(codes),
              _ptr(valid), _ptr(row_off), rank.data_ptr(), strand.data_ptr(),
@@ -112,3 +112,37 @@ def launch_tilelet(wire, phased, codes, valid, row_off, rank, strand, hp,
              grank.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"tilelet kernel launch failed: CUDA error {err}")
+
+
+def launch_fused_scatter(pos, chan, group, rank, ev_off, n_tiles, width,
+                         counts, grank):
+    """Enqueue csrc/scatter.cu's K3 entry point on the current stream
+    (inputs checked by ops/fused_scatter.fused_scatter). Raises on a
+    refused launch."""
+    import torch
+
+    p = ctypes.c_void_p
+    fn = _fn("scatter.cu", "fused_scatter_launch",
+             [p, p, p, p, p, ctypes.c_int, ctypes.c_longlong, p, p, p])
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    err = fn(pos.data_ptr(), chan.data_ptr(), group.data_ptr(),
+             rank.data_ptr(), ev_off.data_ptr(), int(n_tiles), int(width),
+             counts.data_ptr(), grank.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"scatter kernel launch failed: CUDA error {err}")
+
+
+def launch_pileup_counts(pos, chan, ev_off, n_tiles, out):
+    """Enqueue csrc/scatter.cu's K4 entry point on the current stream
+    (inputs checked by ops/pileup_kernel.pileup_counts_kernel; `out` is
+    int32 [length_pad, 32]). Raises on a refused launch."""
+    import torch
+
+    p = ctypes.c_void_p
+    fn = _fn("scatter.cu", "pileup_counts_launch",
+             [p, p, p, ctypes.c_int, p, p])
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    err = fn(pos.data_ptr(), chan.data_ptr(), ev_off.data_ptr(),
+             int(n_tiles), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"count kernel launch failed: CUDA error {err}")

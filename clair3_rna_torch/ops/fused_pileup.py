@@ -1,8 +1,8 @@
-"""Fused device pileup pass: packed reads -> counts -> candidate mask ->
-33-window gather -> PileupNet, one device pass per chunk.
+"""Fused device pileup pass: reads -> counts -> candidate mask -> 33-window
+gather -> PileupNet, one device pass per chunk.
 
-Packed read rows are staged to the device once per chunk and nothing
-round-trips between stages (the reference's per-position loop being
+A chunk's reads are staged to the device once and nothing round-trips
+between stages (the reference's per-position loop being
 replaced is src/create_tensor_pileup.py:85-302 plus the separate predict
 process). Contrast with the host route, where the C++ tile builder makes the
 count image on the host and only candidate windows reach the device.
@@ -32,10 +32,16 @@ Exactness strategy (VCF-identical to the host route):
   the AF-threshold table, clustered splice triggers, or more splice flags
   than hatch_max fall back per chunk.
 
-Base codes ride the tilelet rows (ops/tilelet.py: the CUDA kernel on a
-card); stars and indels (~1% of events) ride a sparse side channel of
-index_add_ / scatter_reduce. The flat events wire of the JAX package
-(mode="events", its K3 kernel) is not ported yet.
+Two wires feed the pass (CLAIR3_RNA_TORCH_FUSED_MODE):
+
+- mode="packed" (default): base codes ride the tilelet rows
+  (ops/tilelet.py: the CUDA kernel K1/K2 on a card); stars and indels (~1%
+  of events) ride a sparse side channel of index_add_ / scatter_reduce.
+- mode="events": flat per-event arrays (~10 B/event) through
+  ops/fused_scatter.py (the CUDA kernel K3 on a card), which builds the
+  count image and the group ranks in one launch.
+
+Both share `_tail`, everything after the count image.
 """
 
 import dataclasses
@@ -48,6 +54,7 @@ import torch
 
 from clair3_rna_torch import config
 from clair3_rna_torch.config import PileupConfig
+from clair3_rna_torch.ops import fused_scatter as fsc
 from clair3_rna_torch.ops import tilelet as tlt
 
 FLANK = config.FLANKING_BASE_NUM
@@ -80,6 +87,35 @@ def _pad_pow2(arr, fill, min_size=1024):
         return arr
     pad_shape = (size - n,) + arr.shape[1:]
     return np.concatenate([arr, np.full(pad_shape, fill, arr.dtype)])
+
+
+@dataclass
+class StagedChunk:
+    """Host-staged flat-event arrays for one chunk (mode="events").
+
+    Events are bucketed by fsc.POS_TILE tile (fsc.bucket_events); ev_off
+    gives each tile's range. Nothing is padded: every event is real and
+    lies in [0, width)."""
+
+    width: int
+    core_lo: int
+    core_hi: int
+    start: int
+    ev_pos: np.ndarray        # [E] int32 position offsets, tile-bucketed
+    ev_chan: np.ndarray       # [E] int8 channel 0..17
+    ev_group: np.ndarray      # [E] int8 0..5, GROUP_NONE for stars
+    ev_rank: np.ndarray       # [E] int32
+    ev_off: np.ndarray        # [width / fsc.POS_TILE + 1] int32
+    cover_pos: np.ndarray     # [K] int32 positions with cover deltas
+    cover_delta: np.ndarray   # [K] int32
+    i1_pos: np.ndarray        # [K] int32 positions with I1/i1/D1/d1 patches
+    i1_vals: np.ndarray       # [K, 4] int32
+    ref_code: np.ndarray      # [W] int8 (-1 non-ACGT)
+    thr_snp: np.ndarray       # [D_TABLE] int32
+    thr_indel: np.ndarray
+    cover_allow: np.ndarray   # [W] int8 bed+-33 mask (1-elt placeholder off)
+    cand_allow: np.ndarray    # [W] int8 bed-span / known-site mask
+    max_skip: np.ndarray      # [W] int32 splice statistics (placeholder off)
 
 
 @dataclass
@@ -181,6 +217,91 @@ def _sparse_side(packed, width_pad, phased=False):
             _pad_pow2(sp_rank, tlt.MAX_RANK, min_size=512), sp_weight)
 
 
+def _width_pad(width):
+    """Padded chunk width: the next power of two >= 16384."""
+    width_pad = 16384
+    while width_pad < width:
+        width_pad *= 2
+    return width_pad
+
+
+def _indel_patch(data, width):
+    """(i1_pos, i1_vals): positions with I1/i1/D1/d1 counts, the most
+    supported single allele per (pos, strand), from the sparse indels."""
+    from clair3_rna_torch.pileup.builder import _max_per_allele
+    ins_max = _max_per_allele(data.ins_pos - data.start, data.ins_strand,
+                              data.ins_allele, width, len(data.ins_seqs))
+    n_del_alleles = int(data.del_len.max()) + 1 if len(data.del_len) else 0
+    del_max = _max_per_allele(data.del_pos - data.start, data.del_strand,
+                              data.del_len, width, n_del_alleles)
+    patch = np.concatenate([ins_max, del_max], axis=1)
+    i1_pos = np.nonzero(patch.any(axis=1))[0].astype(np.int32)
+    return i1_pos, patch[i1_pos].astype(np.int32)
+
+
+def _cover_deltas(cover_count):
+    """Cover-count deltas, including the closing delta at `width`: without
+    it the device cumsum carries coverage into the pad region and the
+    covered-run extents bleed past the region end."""
+    diff = np.diff(np.concatenate([[0], cover_count, [0]])).astype(np.int32)
+    nz = np.nonzero(diff)[0].astype(np.int32)
+    return nz, diff[nz]
+
+
+def _tail_arrays(data, ref_codes, cfg, width_pad, cover_allow, cand_allow):
+    """The staged arrays both wires share, by StagedChunk/StagedPacked
+    field name."""
+    width = data.end - data.start
+    i1_pos, i1_vals = _indel_patch(data, width)
+    cover_pos, cover_delta = _cover_deltas(data.cover_count)
+    ca, aa, ms = _mask_args(data, width_pad, cover_allow, cand_allow,
+                            cfg.enable_splice_padding)
+    return dict(
+        cover_pos=_pad_pow2(cover_pos, 0, min_size=256),
+        cover_delta=_pad_pow2(cover_delta, 0, min_size=256),
+        i1_pos=_pad_pow2(i1_pos, 0, min_size=256),
+        i1_vals=_pad_pow2(i1_vals, 0, min_size=256),
+        ref_code=np.pad(ref_codes.astype(np.int8), (0, width_pad - width),
+                        constant_values=-1),
+        thr_snp=_af_thresholds(cfg.effective_snp_af),
+        thr_indel=_af_thresholds(cfg.effective_indel_min_af),
+        cover_allow=ca, cand_allow=aa, max_skip=ms)
+
+
+def stage_chunk(events, ref_codes, cfg: PileupConfig, core_lo, core_hi,
+                width_pad=None, cover_allow=None, cand_allow=None):
+    """PileupEvents -> StagedChunk (one host pass; no dense image built):
+    base, star, insertion and deletion events as one flat list, bucketed
+    by tile for the scatter kernel."""
+    width = events.end - events.start
+    if width_pad is None:
+        width_pad = _width_pad(width)
+    CI = config.CHANNEL_INDEX
+    start = events.start
+    ev_pos = np.concatenate([
+        events.base_pos - start, events.star_pos - start,
+        events.ins_pos - start, events.del_pos - start]).astype(np.int32)
+    ev_chan = np.concatenate([
+        events.base_code.astype(np.int32) + 9 * events.base_strand,
+        np.where(events.star_strand == 0, CI["*"], CI["#"]),
+        np.where(events.ins_strand == 0, CI["I"], CI["i"]),
+        np.where(events.del_strand == 0, CI["D"], CI["d"])])
+    ev_group = np.concatenate([
+        events.base_code.astype(np.int32),
+        np.full(len(events.star_pos), GROUP_NONE, np.int32),
+        np.full(len(events.ins_pos), 4, np.int32),
+        np.full(len(events.del_pos), 5, np.int32)])
+    ev_rank = np.concatenate([
+        events.base_rank, np.zeros(len(events.star_pos), np.int64),
+        events.ins_rank, events.del_rank]).astype(np.int32)
+    b = fsc.bucket_events(ev_pos, ev_chan, ev_group, ev_rank, width_pad)
+    return StagedChunk(
+        width=width_pad, core_lo=core_lo - start, core_hi=core_hi - start,
+        start=start, **b,
+        **_tail_arrays(events, ref_codes, cfg, width_pad, cover_allow,
+                       cand_allow))
+
+
 def stage_chunk_packed(packed, ref_codes, cfg: PileupConfig, core_lo,
                        core_hi, width_pad=None, cover_allow=None,
                        cand_allow=None, wire=None):
@@ -188,11 +309,8 @@ def stage_chunk_packed(packed, ref_codes, cfg: PileupConfig, core_lo,
     sparse side arrays). wire="v2" repacks the extractor's nibble arenas
     into 2-bit crumbs + a validity bitmap (tlt.nibble_to_v2)."""
     wire = resolve_wire() if wire is None else wire
-    width = packed.end - packed.start
     if width_pad is None:
-        width_pad = 16384
-        while width_pad < width:
-            width_pad *= 2
+        width_pad = _width_pad(packed.end - packed.start)
 
     # pad rows point at tile n_tiles (beyond every position) and carry no
     # valid slot, so they are inert in the kernel and the plain version
@@ -210,26 +328,6 @@ def stage_chunk_packed(packed, ref_codes, cfg: PileupConfig, core_lo,
         tl_codes, tl_valid = tlt.nibble_to_v2(tl_codes)
     sp_pos, sp_chan, sp_group, sp_rank, sp_weight = _sparse_side(
         packed, width_pad, phased=cfg.phased)
-
-    from clair3_rna_torch.pileup.builder import _max_per_allele
-    ins_max = _max_per_allele(packed.ins_pos - packed.start,
-                              packed.ins_strand, packed.ins_allele,
-                              width, len(packed.ins_seqs))
-    n_del_alleles = int(packed.del_len.max()) + 1 if len(packed.del_len) else 0
-    del_max = _max_per_allele(packed.del_pos - packed.start,
-                              packed.del_strand, packed.del_len,
-                              width, n_del_alleles)
-    patch = np.concatenate([ins_max, del_max], axis=1)
-    i1_pos = np.nonzero(patch.any(axis=1))[0].astype(np.int32)
-    i1_vals = patch[i1_pos].astype(np.int32)
-
-    # cover-count deltas, including the closing delta at `width`: without
-    # it the device cumsum carries coverage into the pad region and the
-    # covered-run extents bleed past the region end
-    diff = np.diff(np.concatenate(
-        [[0], packed.cover_count, [0]])).astype(np.int32)
-    nz = np.nonzero(diff)[0].astype(np.int32)
-
     return StagedPacked(
         width=width_pad, core_lo=core_lo - packed.start,
         core_hi=core_hi - packed.start, start=packed.start,
@@ -241,18 +339,8 @@ def stage_chunk_packed(packed, ref_codes, cfg: PileupConfig, core_lo,
         tl_hp=_pad_rows(packed.tl_hp.astype(np.int8), np.int8(0)),
         sp_pos=sp_pos, sp_chan=sp_chan, sp_group=sp_group, sp_rank=sp_rank,
         sp_weight=sp_weight,
-        cover_pos=_pad_pow2(nz, 0, min_size=256),
-        cover_delta=_pad_pow2(diff[nz], 0, min_size=256),
-        i1_pos=_pad_pow2(i1_pos, 0, min_size=256),
-        i1_vals=_pad_pow2(i1_vals, 0, min_size=256),
-        ref_code=np.pad(ref_codes.astype(np.int8),
-                        (0, width_pad - width), constant_values=-1),
-        thr_snp=_af_thresholds(cfg.effective_snp_af),
-        thr_indel=_af_thresholds(cfg.effective_indel_min_af),
-        **dict(zip(("cover_allow", "cand_allow", "max_skip"),
-                   _mask_args(packed, width_pad, cover_allow, cand_allow,
-                              cfg.enable_splice_padding))),
-    )
+        **_tail_arrays(packed, ref_codes, cfg, width_pad, cover_allow,
+                       cand_allow))
 
 
 def staged_tensors(st: StagedPacked, device):
@@ -270,11 +358,13 @@ def staged_tensors(st: StagedPacked, device):
 
 def make_fused_fn(params, cfg: PileupConfig, *, max_candidates=1024,
                   known_only=False, with_masks=False,
-                  with_renorm_windows=False, wire="v2"):
+                  with_renorm_windows=False, wire="v2", mode="packed"):
     """The fused function over staged device tensors.
 
-    fused(t, core, sel=None) with t = staged_tensors(...) and core =
-    (core_lo, core_hi) returns one f32 tensor [max_candidates + 1, P + 12]
+    fused(t, core, sel=None) with t = staged_tensors(...) of a StagedPacked
+    (mode="packed", tilelet wire `wire`) or a StagedChunk (mode="events")
+    and core = (core_lo, core_hi) returns one f32 tensor
+    [max_candidates + 1, P + 12]
     (header row carries n_cand; body rows are cand | probs+mask | gcount4 |
     grank4 | ref_count | depth | host_flags, P = probs-plus-prescreen
     width), so the host fetches ONE tensor per chunk. With `sel` (int32
@@ -298,6 +388,10 @@ def make_fused_fn(params, cfg: PileupConfig, *, max_candidates=1024,
     net = params
     n_ch = cfg.channel_size  # 18, or 30 in phased mode
     phased = bool(cfg.phased)
+    if mode not in ("packed", "events"):
+        raise ValueError(f"bad fused mode {mode!r} (packed|events)")
+    if phased and mode != "packed":
+        raise ValueError("phased fused mode requires mode='packed'")
     min_cov = int(cfg.min_coverage)
     fast = cfg.platform == "ont" and cfg.fast_mode
     af_zero = (cfg.effective_snp_af == 0.0
@@ -311,7 +405,7 @@ def make_fused_fn(params, cfg: PileupConfig, *, max_candidates=1024,
     SKIP_THR = float(config.SKIP_PROPORTION_THRESHOLD)
     expand = tlt.tilelet_expand_v2 if wire == "v2" else tlt.tilelet_expand
 
-    def _counts(t):
+    def _counts_packed(t):
         """Steps 1+2: base channels + base group ranks from the tilelet
         kernel, then the sparse star/ins/del side channel."""
         W = t["ref_code"].shape[0]
@@ -340,8 +434,19 @@ def make_fused_fn(params, cfg: PileupConfig, *, max_candidates=1024,
         grank6 = torch.minimum(grank6, sp_grank.reshape(W, 8)[:, :6])
         return counts, grank6
 
-    def fused(t, core, sel=None):
-        counts, grank6 = _counts(t)
+    def _counts_events(t):
+        """Steps 1+2: the channel-count image and the first-occurrence
+        group ranks of every event from the scatter kernel (empty groups
+        read 2^30; _tail masks them by count)."""
+        counts_f, ranks_f = fsc.fused_scatter(
+            t["ev_pos"], t["ev_chan"], t["ev_group"], t["ev_rank"],
+            t["ev_off"], t["ref_code"].shape[0])
+        return (counts_f[:n_ch].T.to(torch.int32).contiguous(),
+                ranks_f[:6].T.to(torch.int32))
+
+    def _tail(counts, grank6, t, core, sel=None):
+        """Steps 3-8, shared by both wires: i1 patch, features, candidate
+        mask, window gather, network, prescreen, host flags."""
         ref_code = t["ref_code"]
         W = ref_code.shape[0]
         dev = ref_code.device
@@ -524,6 +629,12 @@ def make_fused_fn(params, cfg: PileupConfig, *, max_candidates=1024,
             return torch.cat([header, body, flat.reshape(k, cols)], dim=0)
         return torch.cat([header, body], dim=0)
 
+    counts_fn = _counts_events if mode == "events" else _counts_packed
+
+    def fused(t, core, sel=None):
+        counts, grank6 = counts_fn(t)
+        return _tail(counts, grank6, t, core, sel=sel)
+
     return fused
 
 
@@ -537,14 +648,10 @@ def resolve_wire():
 
 
 def resolve_mode():
-    """Wire format from CLAIR3_RNA_TORCH_FUSED_MODE: only "packed" (the
-    default) is ported; "events" needs the K3 scatter kernel."""
+    """Wire format from CLAIR3_RNA_TORCH_FUSED_MODE (packed|events); packed
+    is the default."""
     mode = os.environ.get("CLAIR3_RNA_TORCH_FUSED_MODE", "packed")
-    if mode == "events":
-        raise NotImplementedError(
-            "CLAIR3_RNA_TORCH_FUSED_MODE=events needs the flat-event scatter "
-            "kernel (K3), not ported yet (ROADMAP Queue 2 K3)")
-    if mode != "packed":
+    if mode not in ("packed", "events"):
         raise ValueError(f"bad CLAIR3_RNA_TORCH_FUSED_MODE: {mode}")
     return mode
 
@@ -600,6 +707,9 @@ class FusedChunkCaller:
         self._next_budget = max_candidates
         self.overflow_retries = 0   # chunks rerun with a widened budget
         self.mode = resolve_mode()
+        if cfg.phased and self.mode != "packed":
+            raise ValueError("phased fused mode requires "
+                             "CLAIR3_RNA_TORCH_FUSED_MODE=packed")
         self.wire = resolve_wire()
         self.known_only = known_only
         self.with_masks = with_masks
@@ -626,34 +736,50 @@ class FusedChunkCaller:
         return make_fused_fn(
             self.params, self.cfg, max_candidates=budget,
             known_only=self.known_only, with_masks=self.with_masks,
-            with_renorm_windows=fold, wire=self.wire)
+            with_renorm_windows=fold, wire=self.wire, mode=self.mode)
 
     def call_chunk(self, data, ref_codes, ctg_name, ref_seq, ref_lo,
                    core_lo, core_hi, cover_allow=None, cand_allow=None,
                    host_ctx=None):
         """One chunk: stage, run the fused pass, decode on the host.
 
-        `data` is a PackedReads (a PileupEvents is converted). Returns
+        `data` is a PackedReads (mode="packed"; a PileupEvents is
+        converted) or a PileupEvents (mode="events"). Returns
         (vcf_rows, n_candidates) or None for host fallback. `host_ctx`
         enables the per-candidate escape paths: a dict with "bam", "fasta",
         "forward" (the pipeline's wire forward, so escape-path
         probabilities equal host-route probabilities) and optionally
         "known_positions"/"bed_regions" for the splice-hatch mini builds."""
         from clair3_rna_torch.caller.decode import decode_batch
-        from clair3_rna_torch.pileup.builder import _alt_data_fast
+        from clair3_rna_torch.pileup.builder import (SparseIndels,
+                                                     _alt_data_fast)
 
-        if not hasattr(data, "tl_codes"):  # PileupEvents given: convert
-            from clair3_rna_torch.pileup.packed import packed_from_events
-            data = packed_from_events(data)
-        if data.max_rank >= tlt.MAX_RANK:
-            # rank exceeds the exact-f32 range: host route handles it
-            return self._fallback()
-        staged = stage_chunk_packed(data, ref_codes, self.cfg, core_lo,
-                                    core_hi, cover_allow=cover_allow,
-                                    cand_allow=cand_allow, wire=self.wire)
+        if self.mode == "packed":
+            if not hasattr(data, "tl_codes"):  # PileupEvents given: convert
+                from clair3_rna_torch.pileup.packed import packed_from_events
+                data = packed_from_events(data)
+            if data.max_rank >= tlt.MAX_RANK:
+                # rank exceeds the exact-f32 range: host route handles it
+                return self._fallback()
+            staged = stage_chunk_packed(data, ref_codes, self.cfg, core_lo,
+                                        core_hi, cover_allow=cover_allow,
+                                        cand_allow=cand_allow,
+                                        wire=self.wire)
+            indels = data.sparse_indels()
+        else:
+            max_rank = max((int(a.max()) for a in (
+                data.base_rank, data.ins_rank, data.del_rank) if len(a)),
+                default=0)
+            if max_rank >= fsc.MAX_RANK:
+                # the scatter kernel's ranks are f32: beyond 2^24 the host
+                # route handles the chunk
+                return self._fallback()
+            staged = stage_chunk(data, ref_codes, self.cfg, core_lo,
+                                 core_hi, cover_allow=cover_allow,
+                                 cand_allow=cand_allow)
+            indels = SparseIndels.from_events(data)
         tensors = staged_tensors(staged, self.device)
         core = (staged.core_lo, staged.core_hi)
-        indels = data.sparse_indels()
         # deep chunks fold their raw windows into the one output (max
         # coverage bounds candidate depth, so only such chunks can flag
         # renorm candidates)
@@ -800,7 +926,7 @@ class FusedChunkCaller:
             rr = build_chunk_tensors(
                 host_ctx["bam"], host_ctx["fasta"], mini, self.cfg,
                 known_positions=host_ctx.get("known_positions"),
-                bed_regions=host_ctx.get("bed_regions"))
+                bed_regions=host_ctx.get("bed_regions"), device=self.device)
             rec = next((r for r in rr if r.position == p + 1), None)
             if rec is None:
                 return None

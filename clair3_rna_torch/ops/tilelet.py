@@ -23,10 +23,10 @@ hp=1 at 18..21 and hp=2 at 24..27; every other channel is 0 and groups
 tensors; `tilelet_oracle` is the numpy scalar-loop reference.
 """
 
-import threading
-
 import numpy as np
 import torch
+
+from clair3_rna_torch.ops import kernel_io
 
 POS_TILE = 256            # positions per tile
 HALF = POS_TILE // 2      # nibble-packed bytes per row
@@ -86,23 +86,8 @@ def quantize_rows(n):
     return -(-n // step) * step
 
 
-# --- kernel launch counts -----------------------------------------------------
-# One count per wrapper, bumped only where the CUDA kernel is launched, so a
-# run can show that its main path went through the kernel. Guarded by a lock:
-# the calling pipeline launches from its two prefetch threads.
-_launch_lock = threading.Lock()
-launches = {"tilelet_expand_v2": 0, "tilelet_expand": 0}
-
-
-def reset_launches():
-    with _launch_lock:
-        for k in launches:
-            launches[k] = 0
-
-
-def _count_launch(name):
-    with _launch_lock:
-        launches[name] += 1
+launches, reset_launches, _count_launch = kernel_io.launch_counter(
+    "tilelet_expand_v2", "tilelet_expand")
 
 
 # --- plain PyTorch version ---------------------------------------------------
@@ -161,16 +146,6 @@ def tilelet_expand_plain(tl_codes, tl_valid, tl_tile, tl_rank, tl_strand,
 
 # --- kernel wrappers ---------------------------------------------------------
 
-def _check_rows(name, t, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
 def _expand(kernel_name, wire, tl_codes, tl_valid, tl_tile, tl_rank,
             tl_strand, tl_hp, width_pad, phased):
     r = tl_codes.shape[0]
@@ -180,26 +155,21 @@ def _expand(kernel_name, wire, tl_codes, tl_valid, tl_tile, tl_rank,
                          f"{POS_TILE}")
     if tl_hp is None:
         tl_hp = torch.zeros(r, dtype=torch.int8, device=tl_codes.device)
-    _check_rows("tl_codes", tl_codes, torch.uint8, (r, row_bytes))
+    kernel_io.check("tl_codes", tl_codes, torch.uint8, (r, row_bytes))
     if wire == "v2":
-        _check_rows("tl_valid", tl_valid, torch.uint8, (r, V2_VBYTES))
-    _check_rows("tl_tile", tl_tile, torch.int32, (r,))
-    _check_rows("tl_rank", tl_rank, torch.int32, (r,))
-    _check_rows("tl_strand", tl_strand, torch.int8, (r,))
-    _check_rows("tl_hp", tl_hp, torch.int8, (r,))
+        kernel_io.check("tl_valid", tl_valid, torch.uint8, (r, V2_VBYTES))
+    kernel_io.check("tl_tile", tl_tile, torch.int32, (r,))
+    kernel_io.check("tl_rank", tl_rank, torch.int32, (r,))
+    kernel_io.check("tl_strand", tl_strand, torch.int8, (r,))
+    kernel_io.check("tl_hp", tl_hp, torch.int8, (r,))
     tensors = [tl_codes, tl_tile, tl_rank, tl_strand, tl_hp]
     if wire == "v2":
         tensors.append(tl_valid)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tilelet inputs on several devices: {devices}")
-    dev = tl_codes.device
+    dev = kernel_io.one_device("tilelet", tensors)
     if dev.type == "cpu":
         return tilelet_expand_plain(tl_codes, tl_valid, tl_tile, tl_rank,
                                     tl_strand, tl_hp, width_pad,
                                     phased=phased, wire=wire)
-    if dev.type != "cuda":
-        raise ValueError(f"tilelet kernel: unsupported device {dev}")
 
     from clair3_rna_torch.csrc import launch_tilelet
 

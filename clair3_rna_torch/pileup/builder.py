@@ -104,24 +104,39 @@ class TensorRecord:
         return f"{self.ctg_name}\t{self.position}\t{self.ref_seq}\t{flat}\t{self.alt_info}"
 
 
+COUNT_BACKENDS = ("host", "device", "kernel")
+# CLAIR3_RNA_TORCH_PILEUP_BACKEND also names the calling route for
+# caller/backend.py; to the builder those values mean its host bincount
+_ROUTE_NAMES = ("auto", "fused", "hybrid")
+
+
 def _pileup_backend():
-    """Channel-count accumulation backend for the pure-array builder path:
-    'host' (numpy bincount, default); 'device' and 'pallas' name the
-    device count kernel (K4), not ported yet. The native C++ tile builder
-    bypasses this entirely."""
+    """Channel-count backend of the pure-array builder, from
+    CLAIR3_RNA_TORCH_PILEUP_BACKEND: 'host' (numpy bincount, default),
+    'device' (one torch.bincount on the run's device) or 'kernel' (the CUDA
+    count kernel K4, ops/pileup_kernel; the JAX package's 'pallas'). The
+    native C++ tile builder bypasses this entirely."""
     import os
-    return os.environ.get("CLAIR3_RNA_TORCH_PILEUP_BACKEND", "host")
+    backend = os.environ.get("CLAIR3_RNA_TORCH_PILEUP_BACKEND") or "host"
+    if backend in _ROUTE_NAMES:
+        return "host"
+    if backend not in COUNT_BACKENDS:
+        raise ValueError(f"bad CLAIR3_RNA_TORCH_PILEUP_BACKEND {backend!r} "
+                         f"for the builder (expected {'|'.join(COUNT_BACKENDS)}"
+                         f", or a route name {'|'.join(_ROUTE_NAMES)})")
+    return backend
 
 
-def _scatter_count(pos, extra_idx, width, n_extra):
-    """bincount positions x small-index into a [width, n_extra] int32 image."""
+def _scatter_count(pos, extra_idx, width, n_extra, backend="host",
+                   device=None):
+    """bincount positions x small-index into a [width, n_extra] int32
+    image, on the host or (backend device/kernel) on `device`."""
     if len(pos) == 0:
         return np.zeros((width, n_extra), dtype=np.int32)
-    backend = _pileup_backend()
-    if backend in ("device", "pallas"):
-        raise NotImplementedError(
-            f"pileup backend {backend!r}: the device count kernel (K4) is "
-            "not ported yet (ROADMAP Queue 2 K4)")
+    if backend != "host":
+        from clair3_rna_torch.ops import pileup_kernel
+        return pileup_kernel.pileup_counts(pos, extra_idx, width, n_extra,
+                                           backend, device)
     linear = pos.astype(np.int64) * n_extra + extra_idx
     return np.bincount(linear, minlength=width * n_extra).reshape(width, n_extra).astype(np.int32)
 
@@ -147,8 +162,19 @@ def _min_rank(pos, group, rank, width, n_groups, out=None):
 
 
 def build_tile_features(events: PileupEvents, ref_codes: np.ndarray,
-                        cfg: PileupConfig) -> TileFeatures:
-    """Turn packed events into the dense per-position feature image."""
+                        cfg: PileupConfig, device=None) -> TileFeatures:
+    """Turn packed events into the dense per-position feature image. With
+    the device/kernel count backends the channel counts are taken on
+    `device` (resolved as an entry point does: CUDA unless "cpu" is
+    asked for); the host backend never touches a device."""
+    backend = _pileup_backend()
+    if backend != "host":
+        from clair3_rna_torch import resolve_device
+        device = resolve_device(device)
+
+    def _count(pos, idx, n):
+        return _scatter_count(pos, idx, width, n, backend, device)
+
     start, end = events.start, events.end
     width = end - start
     n_channels = cfg.channel_size
@@ -161,17 +187,17 @@ def build_tile_features(events: PileupEvents, ref_codes: np.ndarray,
 
     # base channels: code + 9*strand -> A..T fwd / a..t rev
     base_ch = events.base_code.astype(np.int64) + 9 * events.base_strand
-    counts[:, :] += _scatter_count(
+    counts[:, :] += _count(
         np.concatenate([bpos, spos]),
         np.concatenate([base_ch, np.where(events.star_strand == 0,
                                           CHANNEL_INDEX["*"], CHANNEL_INDEX["#"])]),
-        width, n_channels,
+        n_channels,
     )
     # insertion / deletion totals by strand
     ins_ch = np.where(events.ins_strand == 0, CHANNEL_INDEX["I"], CHANNEL_INDEX["i"])
     del_ch = np.where(events.del_strand == 0, CHANNEL_INDEX["D"], CHANNEL_INDEX["d"])
-    counts += _scatter_count(np.concatenate([ipos, dpos]),
-                             np.concatenate([ins_ch, del_ch]), width, n_channels)
+    counts += _count(np.concatenate([ipos, dpos]),
+                     np.concatenate([ins_ch, del_ch]), n_channels)
     # most-supported single allele counts (I1/i1, D1/d1)
     ins_max = _max_per_allele(ipos, events.ins_strand, events.ins_allele,
                               width, len(events.ins_seqs))
@@ -188,22 +214,22 @@ def build_tile_features(events: PileupEvents, ref_codes: np.ndarray,
         # strands merged (src/create_tensor_pileup.py:181-217)
         for hp, base_off in ((1, CHANNEL_SIZE), (2, CHANNEL_SIZE + 6)):
             sel = events.base_hp == hp
-            counts += _scatter_count(bpos[sel],
-                                     events.base_code[sel].astype(np.int64) + base_off,
-                                     width, n_channels)
+            counts += _count(bpos[sel],
+                             events.base_code[sel].astype(np.int64) + base_off,
+                             n_channels)
             sel = events.ins_hp == hp
-            counts += _scatter_count(ipos[sel],
-                                     np.full(int(sel.sum()), base_off + 4, dtype=np.int64),
-                                     width, n_channels)
+            counts += _count(ipos[sel],
+                             np.full(int(sel.sum()), base_off + 4, dtype=np.int64),
+                             n_channels)
             sel = events.del_hp == hp
-            counts += _scatter_count(dpos[sel],
-                                     np.full(int(sel.sum()), base_off + 5, dtype=np.int64),
-                                     width, n_channels)
+            counts += _count(dpos[sel],
+                             np.full(int(sel.sum()), base_off + 5, dtype=np.int64),
+                             n_channels)
 
     # pileup_dict groups: case-merged ACGT + I + D, with first-occurrence
     # ranks replicating Counter insertion-order tie-breaking
     group_count = np.zeros((width, 6), dtype=np.int32)
-    group_count[:, :4] = _scatter_count(bpos, events.base_code.astype(np.int64), width, 4)
+    group_count[:, :4] = _count(bpos, events.base_code.astype(np.int64), 4)
     ins_total = counts[:, CHANNEL_INDEX["I"]] + counts[:, CHANNEL_INDEX["i"]]
     del_total = counts[:, CHANNEL_INDEX["D"]] + counts[:, CHANNEL_INDEX["d"]]
     star_total = counts[:, CHANNEL_INDEX["*"]] + counts[:, CHANNEL_INDEX["#"]]

@@ -98,7 +98,7 @@ def open_bam(path: str, prefer_native: bool = True):
 
     CLAIR3_RNA_TORCH_NO_NATIVE=1 forces the pure-Python/array path (whose
     channel accumulation backend is then selectable via
-    CLAIR3_RNA_TORCH_PILEUP_BACKEND=host|device|pallas, see pileup/builder.py).
+    CLAIR3_RNA_TORCH_PILEUP_BACKEND=host|device|kernel, see pileup/builder.py).
     """
     import logging
     import os
@@ -125,9 +125,14 @@ def open_bam(path: str, prefer_native: bool = True):
 
 def build_chunk_tensors(bam: BamReader, fasta: FastaFile, task: ChunkTask,
                         cfg: PileupConfig, known_positions=None,
-                        bed_regions=None, return_features=False):
+                        bed_regions=None, return_features=False,
+                        device=None):
     """Produce TensorRecords for one chunk (the reference pipeline's unit of
     work). Returns records ordered by center position.
+
+    `device` is where the pure-array builder takes its channel counts when
+    CLAIR3_RNA_TORCH_PILEUP_BACKEND is device or kernel (the native tile
+    builder and the host backend ignore it).
 
     bed_regions restricts calling like the reference's --bed_fn: pileup rows
     exist only within bed +-33 (split_extend_bed + mpileup -l,
@@ -162,7 +167,8 @@ def build_chunk_tensors(bam: BamReader, fasta: FastaFile, task: ChunkTask,
             eff_ref_code=fin["eff_ref_code"], counts_negated=True)
     else:
         indels = extract_region_events(bam, task.ctg_name, row_lo, row_hi, cfg)
-        feat = builder.build_tile_features(indels, codes, cfg)
+        feat = builder.build_tile_features(indels, codes, cfg,
+                                           device=device)
 
     bed_mask = None
     if bed_regions is not None:

@@ -114,9 +114,10 @@ def test_renorm_depth_matches_jax(tmp_path):
     assert stats.fused["fallback_chunks"] == 0
 
 
-def test_isolated_splice_hatch_matches_jax(tmp_path):
+def test_isolated_splice_hatch_matches_jax(tmp_path, monkeypatch):
     """An ISOLATED splice-trigger candidate rides the per-candidate host
-    rebuild (the hatch) while the rest of the chunk stays fused."""
+    rebuild (the hatch) while the rest of the chunk stays fused, on the
+    packed wire and on the events wire."""
     from clair3_rna_torch import simdata
 
     def variants(genome):
@@ -132,19 +133,23 @@ def test_isolated_splice_hatch_matches_jax(tmp_path):
     jp, net = _weights()
     kw = dict(cfg_kw=dict(enable_splice_padding=True))
     want = _jax_host(fasta, bam, str(tmp_path / "jax.vcf"), jp, **kw)
-    fused, stats = _port(fasta, bam, str(tmp_path / "fused.vcf"), net,
-                         "fused", **kw)
     assert len(want) >= 3
-    assert fused == want
-    assert stats.fused["hatch_candidates"] > 0
-    assert stats.fused["fallback_chunks"] == 0
+    for mode in ("packed", "events"):
+        monkeypatch.setenv("CLAIR3_RNA_TORCH_FUSED_MODE", mode)
+        fused, stats = _port(fasta, bam, str(tmp_path / f"{mode}.vcf"), net,
+                             "fused", **kw)
+        assert fused == want, mode
+        assert stats.fused["hatch_candidates"] > 0, mode
+        assert stats.fused["fallback_chunks"] == 0, mode
 
 
 @pytest.mark.parametrize("backend", ["host", "fused"])
 def test_crash_resume_matches_jax(tmp_path, monkeypatch, backend):
     """A run that dies mid-contig leaves finished chunks in the chunk
-    manifest; --resume redoes only the rest and the VCF body equals the JAX
-    package's uninterrupted run."""
+    manifest; --resume redoes exactly the rest and the VCF body equals the
+    JAX package's uninterrupted run. The crash is keyed on the chunk's
+    identity (the fourth planned start), not on the order in which the two
+    prefetch threads reach the patched function."""
     from clair3_rna_torch.ops import fused_pileup as tfp
 
     fasta, bam = _dataset(tmp_path, seed=71, contig_len=40_000,
@@ -153,17 +158,22 @@ def test_crash_resume_matches_jax(tmp_path, monkeypatch, backend):
     want = _jax_host(fasta, bam, str(tmp_path / "jax.vcf"), jp,
                      chunk_size=8_000)
     assert len(want) > 40
+    planned = [0, 8_000, 16_000, 24_000, 32_000]
 
-    calls = []
     if backend == "host":
         target, name = tpl, "build_chunk_tensors"
+
+        def chunk_start(a, k):      # (bam, fasta, task, cfg, ...)
+            return a[2].start
     else:
         target, name = tfp.FusedChunkCaller, "call_chunk"
+
+        def chunk_start(a, k):      # (self, data, codes, ctg, seq, ref_lo,
+            return a[6]             #  core_lo, ...)
     orig = getattr(target, name)
 
     def crashing(*a, **k):
-        calls.append(1)
-        if len(calls) > 3:
+        if chunk_start(a, k) == planned[3]:
             raise RuntimeError("injected crash")
         return orig(*a, **k)
 
@@ -176,11 +186,13 @@ def test_crash_resume_matches_jax(tmp_path, monkeypatch, backend):
     lines = [json.loads(line) for line in
              open(os.path.join(mdir, "chr1.chunks.jsonl"))]
     assert 1 <= len(lines) <= 3
+    restored = {rec["start"] for rec in lines}
+    assert planned[3] not in restored
 
     redone = []
 
     def counting(*a, **k):
-        redone.append(1)
+        redone.append(chunk_start(a, k))
         return orig(*a, **k)
 
     monkeypatch.setattr(target, name, counting)
@@ -188,5 +200,52 @@ def test_crash_resume_matches_jax(tmp_path, monkeypatch, backend):
                    chunk_size=8_000, manifest_dir=mdir, resume=True,
                    batch_size=16)
     assert got == want
-    assert len(redone) == 5 - len(lines)
+    assert sorted(redone) == sorted(set(planned) - restored)
     assert os.path.exists(os.path.join(mdir, "chr1.done.json"))
+
+
+def test_events_mode_matches_jax(tmp_path, monkeypatch):
+    """The fused route on the flat events wire (CLAIR3_RNA_TORCH_FUSED_MODE
+    =events: the scatter's plain version on the CPU), as
+    tests/test_fused_scatter.py:183 runs the JAX package's: VCF body equal
+    to the JAX package's host route."""
+    fasta, bam = _dataset(tmp_path, seed=91, contig_len=12_000,
+                          n_variants=40, depth=20)
+    jp, net = _weights()
+    want = _jax_host(fasta, bam, str(tmp_path / "jax.vcf"), jp,
+                     chunk_size=6_000)
+    monkeypatch.setenv("CLAIR3_RNA_TORCH_FUSED_MODE", "events")
+    got, stats = _port(fasta, bam, str(tmp_path / "events.vcf"), net,
+                       "fused", chunk_size=6_000)
+    assert len(want) > 10
+    assert got == want
+    assert stats.fused["fallback_chunks"] == 0
+
+
+def test_pure_array_kernel_backend_matches_jax(tmp_path, monkeypatch):
+    """The host route on the pure-array builder (CLAIR3_RNA_TORCH_NO_NATIVE)
+    with its channel counts through the count kernel's dispatch
+    (CLAIR3_RNA_TORCH_PILEUP_BACKEND=kernel: the plain version on the
+    CPU): VCF body equal to the JAX package's host route."""
+    from clair3_rna_torch.ops import pileup_kernel as tpk
+
+    fasta, bam = _dataset(tmp_path, seed=93, contig_len=6_000,
+                          n_variants=20, depth=20)
+    jp, net = _weights()
+    want = _jax_host(fasta, bam, str(tmp_path / "jax.vcf"), jp,
+                     chunk_size=3_000)
+    backends = []
+    orig = tpk.pileup_counts
+
+    def counting(*a, **k):
+        backends.append(a[4])
+        return orig(*a, **k)
+
+    monkeypatch.setattr(tpk, "pileup_counts", counting)
+    monkeypatch.setenv("CLAIR3_RNA_TORCH_NO_NATIVE", "1")
+    monkeypatch.setenv("CLAIR3_RNA_TORCH_PILEUP_BACKEND", "kernel")
+    got, _ = _port(fasta, bam, str(tmp_path / "kernel.vcf"), net, "host",
+                   chunk_size=3_000)
+    assert len(want) > 5
+    assert got == want
+    assert len(backends) >= 4 and set(backends) == {"kernel"}

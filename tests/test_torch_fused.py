@@ -1,8 +1,9 @@
 """The port's fused chunk pass against the JAX package's.
 
-One staged chunk goes through the JAX package's
-make_fused_fn(scatter="xla", mode="packed") and through the port's
-make_fused_fn (its tilelet plain version on the CPU). Integer columns --
+One staged chunk goes through the JAX package's make_fused_fn (mode="packed"
+with scatter="xla"; mode="events" with scatter="xla" and
+"pallas_interpret") and through the port's make_fused_fn (its tilelet or
+scatter plain version on the CPU). Integer columns --
 the header's candidate count, candidate positions, group counts and ranks,
 ref count, depth, host flags, the raw renorm windows -- must match exactly;
 probabilities within rtol 5e-5 / atol 5e-6 (tests/test_model_parity.py's
@@ -137,7 +138,8 @@ def test_fused_output_matches_jax(dataset, case):
 
 def test_windows_fetch_matches_jax(dataset):
     """`sel` mode returns the raw negated count windows at given centers
-    (the renorm re-read), exactly."""
+    (the renorm re-read), exactly, on the packed wire and on the events
+    wire."""
     from clair3_rna_tpu.config import PileupConfig as JCfg
     from clair3_rna_tpu.ops import fused_pileup as jfp
 
@@ -158,9 +160,102 @@ def test_windows_fetch_matches_jax(dataset):
         sel=torch.from_numpy(sel)).numpy()
     assert np.abs(want).max() > 200  # deep island windows
     np.testing.assert_array_equal(got, want)
+    _, tev, _ = _events_chunk(dataset, JCfg(), 18_000, 24_000)
+    est = tfp.stage_chunk(tev, codes, TCfg(), 18_000, 24_000)
+    got = tfp.make_fused_fn(net, TCfg(), mode="events")(
+        tfp.staged_tensors(est, "cpu"), (est.core_lo, est.core_hi),
+        sel=torch.from_numpy(sel)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _events_chunk(dataset, cfg, lo, hi):
+    """(JAX PileupEvents, port PileupEvents, ref codes) for core [lo, hi)."""
+    from clair3_rna_torch.pileup import chunk as tchunk
+    from clair3_rna_tpu.io.fasta import FastaFile
+    from clair3_rna_tpu.pileup import chunk as jchunk
+
+    fasta, bam = dataset
+    row_lo, row_hi = max(0, lo - 33), min(CONTIG, hi + 33)
+    codes = jchunk.ref_codes_from(FastaFile(fasta).fetch("chr1", row_lo,
+                                                         row_hi))
+    jev = jchunk.extract_region_events(jchunk.open_bam(bam), "chr1", row_lo,
+                                       row_hi, cfg)
+    tev = tchunk.extract_region_events(tchunk.open_bam(bam), "chr1", row_lo,
+                                       row_hi, cfg)
+    return jev, tev, codes
+
+
+EVENT_CASES = {
+    # chunks across the splice region, against both JAX scatters (the
+    # interpreted Pallas kernel on a shorter one: it is slow on the CPU)
+    "xla": dict(scatter="xla", lo=6_000, hi=12_000),
+    "pallas_interpret": dict(scatter="pallas_interpret", lo=8_500,
+                             hi=10_500),
+    # the deep island: renorm flags and the folded raw windows
+    "renorm_fold_xla": dict(scatter="xla", lo=18_000, hi=24_000, fold=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EVENT_CASES))
+def test_events_mode_matches_jax(dataset, case):
+    """mode="events": the flat-event staging and the scatter (its plain
+    version on the CPU) against the JAX package's events mode with its XLA
+    segment ops and with its Pallas kernel in interpret mode."""
+    from clair3_rna_tpu.config import PileupConfig as JCfg
+    from clair3_rna_tpu.ops import fused_pileup as jfp
+
+    from clair3_rna_torch.config import PileupConfig as TCfg
+
+    c = EVENT_CASES[case]
+    kw = dict(enable_splice_padding=True)
+    jcfg, tcfg = JCfg(**kw), TCfg(**kw)
+    jp, net = _params()
+    lo, hi, fold = c["lo"], c["hi"], c.get("fold", False)
+    jev, tev, codes = _events_chunk(dataset, jcfg, lo, hi)
+    budget = 1024
+    jst = jfp.stage_chunk(jev, codes, jcfg, lo, hi, scatter=c["scatter"])
+    jfn = jfp.make_fused_fn(jp, jcfg, max_candidates=budget,
+                            scatter=c["scatter"], mode="events",
+                            with_renorm_windows=fold)
+    want = np.asarray(jfn(*jfp.staged_args(jst)))
+
+    tst = tfp.stage_chunk(tev, codes, tcfg, lo, hi)
+    assert tst.ev_pos.shape[0] == int((jst.ev_weight != 0).sum())
+    tfn = tfp.make_fused_fn(net, tcfg, max_candidates=budget, mode="events",
+                            with_renorm_windows=fold)
+    got = tfn(tfp.staged_tensors(tst, "cpu"),
+              (tst.core_lo, tst.core_hi)).numpy()
+
+    assert got.shape == want.shape
+    n = int(want[0, 0])
+    assert 5 < n <= budget and got[0, 0] == want[0, 0]
+    body_w, body_g = want[1:1 + budget], got[1:1 + budget]
+    P = body_w.shape[1] - 12
+    np.testing.assert_array_equal(body_g[:, 0], body_w[:, 0])
+    np.testing.assert_array_equal(body_g[:, P:], body_w[:, P:])
+    np.testing.assert_allclose(body_g[:, 1:P], body_w[:, 1:P], rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_array_equal(got[1 + budget:], want[1 + budget:])
+    if fold:
+        flags = body_w[:n, -1].astype(int)
+        assert (flags & 1).any(), "no renorm-depth candidate in the island"
 
 
 def test_events_mode_not_ported(monkeypatch):
+    """Events mode is ported for unphased calling. What stays refused is
+    what the JAX package refuses too: events mode with phasing
+    (ValueError, as its make_fused_fn), and an unknown mode."""
+    from clair3_rna_torch.caller.decode import CallConfig
+    from clair3_rna_torch.config import PileupConfig
+
     monkeypatch.setenv("CLAIR3_RNA_TORCH_FUSED_MODE", "events")
-    with pytest.raises(NotImplementedError, match="K3"):
+    assert tfp.resolve_mode() == "events"
+    _, net = _params()
+    phased = PileupConfig(phased=True)
+    with pytest.raises(ValueError, match="phased"):
+        tfp.make_fused_fn(net, phased, mode="events")
+    with pytest.raises(ValueError, match="phased"):
+        tfp.FusedChunkCaller(net, phased, CallConfig())
+    monkeypatch.setenv("CLAIR3_RNA_TORCH_FUSED_MODE", "flat")
+    with pytest.raises(ValueError, match="FUSED_MODE"):
         tfp.resolve_mode()
