@@ -15,14 +15,20 @@ Phases (any failed check raises; the exit code is then non-zero):
    bit-identical. The kernel alone (launches replayed from a CUDA graph),
    its wrapper and the plain version are timed with CUDA events at the
    main path's shape. Then the event scatter kernel (K3) on the events of
-   the same chunk as the events wire stages them, the deep chunk, and
-   random events with rank ties, duplicates, empty tiles, stars, pads and
-   negative positions; and the channel-count kernel (K4) on that chunk's
-   pure-array builder calls (18-channel base+star, ins/del, 4-group) and a
-   random 30-channel case. Both bit-identical to their plain versions,
-   timed the same way, and beside one library call of the same function
-   (K3: torch.bincount + torch.scatter_reduce "amin", two calls; K4:
-   torch.bincount);
+   the same chunk in the events wire's staging order and shuffled, the
+   deep chunk (likewise), and random events in random order with rank
+   ties, duplicates, empty stretches, stars, pads, negative positions and
+   bad channels, and random events over 2^23 positions (several of the
+   kernel's bucketing ranges); and the channel-count kernel (K4) on that
+   chunk's pure-array builder calls (18-channel base+star, ins/del,
+   4-group; the first also shuffled), a random 30-channel case and a
+   random case over 8 M positions. Both bit-identical to
+   their plain versions and the same in any event order, timed the same
+   way (warm, and with the L2 cold: the graph rotates over copies of the
+   inputs and outputs that together exceed it), beside one library call of
+   the same function (K3: torch.bincount + torch.scatter_reduce "amin",
+   two calls; K4: torch.bincount) and, for K4, the builder's whole call on
+   the host clock;
 4. network: full-width PileupNet on the card and on the CPU with the same
    seeded weights over real candidate windows; probabilities within 1e-4,
    and rows bit-identical across the pipeline's batch buckets on the card;
@@ -34,7 +40,8 @@ Phases (any failed check raises; the exit code is then non-zero):
    route on the pure-array builder with its counts on the card
    (CLAIR3_RNA_TORCH_NO_NATIVE=1, CLAIR3_RNA_TORCH_PILEUP_BACKEND=kernel,
    K4). Every VCF body must equal the host route's, each kernel must
-   launch on its own path and on no other.
+   launch on its own path and on no other. The events wire's host staging
+   and host-to-card copies are logged per chunk.
 
 Prints one {"kernels": [...]} line and, last, the
 {"ok": true, "device": {...}} line. Exits non-zero without CUDA, and when
@@ -51,6 +58,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 H100_HBM_BPS = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 H100_FP32_OPS = 67e12      # non-tensor float32 rate, used for int ops too
+H100_L2_BYTES = 50_000_000  # L2 cache (NVIDIA data sheet)
 NET_TOL = 1e-4
 CHUNK = 100_000
 SEED = 20261016
@@ -97,18 +105,55 @@ def cuda_time(fn, iters=20, warmup=3):
 def graph_ms(launch, iters=20, reps=5):
     """Device milliseconds of one `launch()` alone: `iters` launches
     captured in one CUDA graph and replayed, so allocations and Python
-    enqueue are left out."""
+    enqueue are left out. With the same inputs every time, whatever of
+    them fits in L2 stays there (warm)."""
+    return rotated_graph_ms([launch], iters, reps)
+
+
+def rotated_graph_ms(launches, iters=20, reps=5):
+    """Device milliseconds per launch of `iters` launches that cycle over
+    `launches` (each on its own copy of inputs and outputs), captured in
+    one CUDA graph and replayed."""
     import torch
 
-    launch()
+    for launch in launches:
+        launch()
     sync()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            launch()
+        for i in range(iters):
+            launches[i % len(launches)]()
     graph.replay()
     sync()
     return cuda_time(graph.replay, iters=reps, warmup=1) / iters
+
+
+def kernel_breakdown(launch, reps=5):
+    """{kernel or memset name: device ms per launch()} over `reps` launches,
+    from torch.profiler's CUDA activity (logged, checks nothing)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    launch()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            launch()
+        sync()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us > 0:
+            out[e.key[:48]] = round(us / reps / 1e3, 5)
+    return out
+
+
+def l2_copies(n_bytes):
+    """Copies of a launch's inputs and outputs to rotate over so that the
+    others' bytes between two launches of one copy exceed the L2 twice:
+    each launch then finds its inputs and outputs cold."""
+    return 1 + max(1, -(-2 * H100_L2_BYTES // n_bytes))
 
 
 def kernel_only_ms(wire, t, want):
@@ -304,7 +349,7 @@ def kernel_phase(work, fasta, bam):
     return results
 
 
-EV_KEYS = ("ev_pos", "ev_chan", "ev_group", "ev_rank", "ev_off")
+EV_KEYS = ("ev_pos", "ev_chan", "ev_group", "ev_rank")
 
 
 def bound(n_bytes, n_ops):
@@ -317,8 +362,8 @@ def bound(n_bytes, n_ops):
 
 
 def staged_events(bam_path, fasta_path, ctg, start, end):
-    """Stage one chunk the way the fused route's events wire does:
-    ({EV_KEYS: numpy array}, padded width)."""
+    """Stage one chunk the way the fused route's events wire does (events
+    in staging order): ({EV_KEYS: numpy array}, padded width)."""
     from clair3_rna_torch import config
     from clair3_rna_torch.io.fasta import FastaFile
     from clair3_rna_torch.ops.fused_pileup import stage_chunk
@@ -335,33 +380,57 @@ def staged_events(bam_path, fasta_path, ctg, start, end):
     return {k: getattr(st, k) for k in EV_KEYS}, st.width
 
 
-def random_events(rng, n_tiles=64, n=200_000):
-    """Tile-bucketed random events: rank ties and duplicate events (ranks
-    0..39), a quarter of the tiles empty, a tenth of the events on eight
-    deep columns, stars (group 6) and group-7 events inside [0, W), pads at
-    W and negative positions (both inert)."""
+def shuffled(rng, arrays):
+    """The same events in a random order."""
+    perm = rng.permutation(len(next(iter(arrays.values()))))
+    return {k: v[perm] for k, v in arrays.items()}
+
+
+def random_events(rng, width=16384, n=200_000):
+    """Random events in random order: rank ties and duplicate events
+    (ranks 0..39), a quarter of the positions' 256-blocks empty, a tenth of
+    the events on eight deep columns, stars (group 6) and group-7 events
+    inside [0, W), and inert events: pads at W, negative positions and
+    channels outside [0, 32)."""
     import numpy as np
 
-    from clair3_rna_torch.ops import fused_scatter as fsc
-
-    width = n_tiles * fsc.POS_TILE
-    live = rng.choice(n_tiles, size=n_tiles * 3 // 4, replace=False)
-    pos = (rng.choice(live, n) * fsc.POS_TILE
-           + rng.integers(0, fsc.POS_TILE, n))
+    live = rng.choice(width // 256, size=width // 256 * 3 // 4,
+                      replace=False)
+    pos = rng.choice(live, n) * 256 + rng.integers(0, 256, n)
     deep = rng.choice(pos, 8)
     pos[:n // 10] = deep[rng.integers(0, 8, n // 10)]
     pos = np.concatenate([pos, np.full(n // 50, width),
-                          rng.integers(-5, 0, 10)])
+                          rng.integers(-5, 0, 10), rng.integers(0, width, 7)])
     m = len(pos)
-    return fsc.bucket_events(pos, rng.integers(0, 18, m),
-                             rng.integers(0, 8, m), rng.integers(0, 40, m),
-                             width), width
+    chan = rng.integers(0, 18, m)
+    chan[-7:] = [32, 33, 40, 100, 127, -1, -128]
+    ev = {"ev_pos": pos.astype(np.int32), "ev_chan": chan.astype(np.int8),
+          "ev_group": rng.integers(0, 8, m).astype(np.int8),
+          "ev_rank": rng.integers(0, 40, m).astype(np.int32)}
+    return shuffled(rng, ev), width
+
+
+def wide_events(rng, width=1 << 23, n=300_000):
+    """Random events in random order over 2^23 positions, six of the
+    kernel's bucketing ranges of 6144 256-position tiles, with a pile on
+    each range boundary and pads at W."""
+    import numpy as np
+
+    edges = np.arange(1, 6) * 6144 * 256
+    pos = np.concatenate([rng.integers(0, width, n),
+                          rng.choice(edges, 5000) + rng.integers(-3, 3, 5000),
+                          np.full(100, width)])
+    m = len(pos)
+    return {"ev_pos": pos.astype(np.int32),
+            "ev_chan": rng.integers(0, 18, m).astype(np.int8),
+            "ev_group": rng.integers(0, 8, m).astype(np.int8),
+            "ev_rank": rng.integers(0, 1000, m).astype(np.int32)}, width
 
 
 def scatter_phase(fasta, bam):
     """The event scatter kernel (K3) against its plain version on every
     case, bit-identical; timings at the main path's shape (the events of
-    the first chr1 chunk)."""
+    the first chr1 chunk, in staging order)."""
     import numpy as np
     import torch
 
@@ -370,11 +439,17 @@ def scatter_phase(fasta, bam):
 
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED)
-    cases = {"chunk": staged_events(bam, fasta, "chr1", 0, CHUNK),
-             "deep": staged_events(bam, fasta, "chr3", 0, 20_000),
-             "random": random_events(rng)}
+    chunk = staged_events(bam, fasta, "chr1", 0, CHUNK)
+    deep = staged_events(bam, fasta, "chr3", 0, 20_000)
+    cases = {"chunk": chunk,
+             "chunk_shuffled": (shuffled(rng, chunk[0]), chunk[1]),
+             "deep": deep,
+             "deep_shuffled": (shuffled(rng, deep[0]), deep[1]),
+             "random": random_events(rng),
+             "wide": wide_events(rng)}
     max_err = 0.0
     res = {}
+    outs = {}
     for name, (ev, width) in cases.items():
         t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
              for k, v in ev.items()}
@@ -388,17 +463,33 @@ def scatter_phase(fasta, bam):
         if not (torch.equal(counts, pc) and torch.equal(grank, pg)):
             fail(f"fused_scatter {name}: kernel != plain (max abs err "
                  f"{err})")
+        outs[name] = (counts, grank)
+        base = name.split("_")[0]
+        if base != name and not (torch.equal(counts, outs[base][0])
+                                 and torch.equal(grank, outs[base][1])):
+            fail(f"fused_scatter {name}: the event order changed the result")
         n_ev = len(ev["ev_pos"])
-        log(f"fused_scatter {name:6s}: bit-identical to plain ({n_ev} "
+        log(f"fused_scatter {name:14s}: bit-identical to plain ({n_ev} "
             f"events, W={width}, {int(counts.sum())} counts)")
         if name != "chunk":
             continue
-        n_tiles = width // fsc.POS_TILE
+        n_bytes = (sum(v.nbytes for v in ev.values())
+                   + (fsc.C_PAD + fsc.G_PAD) * width * 4)
+        copies = [([a.clone() for a in args], torch.empty_like(pc),
+                   torch.empty_like(pg)) for _ in range(l2_copies(n_bytes))]
         oc, og = torch.empty_like(pc), torch.empty_like(pg)
-        ms = graph_ms(lambda: launch_fused_scatter(*args, n_tiles, width,
-                                                   oc, og))
+        ms = graph_ms(lambda: launch_fused_scatter(*args, width, oc, og))
         if not (torch.equal(oc, pc) and torch.equal(og, pg)):
             fail("fused_scatter: graph-launched kernel != plain")
+        cold_ms = rotated_graph_ms(
+            [lambda c=c: launch_fused_scatter(*c[0], width, c[1], c[2])
+             for c in copies], iters=4 * len(copies))
+        for _, c_out, g_out in copies:
+            if not (torch.equal(c_out, pc) and torch.equal(g_out, pg)):
+                fail("fused_scatter: cold graph-launched kernel != plain")
+        log("fused_scatter, device ms by pass: " + json.dumps(
+            kernel_breakdown(lambda: launch_fused_scatter(*args, width, oc,
+                                                          og))))
         wrapper_ms = cuda_time(lambda: fsc.fused_scatter(*args, width))
         plain_ms = cuda_time(lambda: fsc.fused_scatter_plain(*args, width),
                              iters=5)
@@ -422,16 +513,17 @@ def scatter_phase(fasta, bam):
             fail("fused_scatter: the library yardstick computes another "
                  "function")
         library_ms = cuda_time(library)
-        n_bytes = (sum(v.nbytes for v in ev.values())
-                   + (fsc.C_PAD + fsc.G_PAD) * width * 4)
         bound_ms, bound_by = bound(n_bytes, 2 * n_ev)
-        res = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+        res = {"ms": ms, "cold_ms": cold_ms,
+               "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "events": n_ev, "bytes": n_bytes}
-        log(f"fused_scatter at the main path's shape ({n_ev} events, "
-            f"W={width}): kernel alone {ms:.4f} ms, wrapper "
-            f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"(bincount + scatter_reduce amin) {library_ms:.4f} ms, bound "
+        log(f"fused_scatter at the main path's shape ({n_ev} events in "
+            f"staging order, W={width}): whole operation alone {ms:.4f} ms "
+            f"warm, {cold_ms:.4f} ms with L2 cold ({len(copies)} rotated "
+            f"copies); the wrapper {wrapper_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library (bincount + scatter_reduce amin) "
+            f"{library_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({n_bytes} B at 3.35 TB/s)")
     res["max_abs_err"] = max_err
     return res
@@ -470,9 +562,10 @@ def builder_count_calls(fasta, bam, ctg, start, end):
 
 def counts_phase(fasta, bam):
     """The channel-count kernel (K4) against its plain version and the
-    host bincount on the first chr1 chunk's builder calls and a random
-    30-channel case, bit-identical; timings at the largest builder call
-    (base+star, 18 channels)."""
+    host bincount on the first chr1 chunk's builder calls (in the order
+    the builder gives the events, and shuffled) and a random 30-channel
+    case, bit-identical; timings at the largest builder call (base+star,
+    18 channels)."""
     import numpy as np
     import torch
 
@@ -486,16 +579,24 @@ def counts_phase(fasta, bam):
         fail(f"builder count calls: channels {[c[3] for c in calls]}, "
              "expected base+star 18, ins/del 18, groups 4")
     cases = dict(zip(("base+star", "ins/del", "groups"), calls))
+    perm = rng.permutation(len(calls[0][0]))
+    cases["base+star_shuffled"] = (calls[0][0][perm], calls[0][1][perm],
+                                   *calls[0][2:])
     length = CHUNK + 66
     centers = rng.integers(0, length, 2000)
     pos = np.clip(rng.choice(centers, 400_000)
                   + rng.integers(-40, 40, 400_000), 0, length - 1)
     pos = np.concatenate([pos, np.full(100, -1)])    # inert pads
     cases["random_30ch"] = (pos, rng.integers(0, 30, len(pos)), length, 30)
+    # 8 M positions, over several of the kernel's bucketing ranges
+    length = 8_000_000
+    pos = np.concatenate([rng.integers(0, length, 300_000),
+                          np.arange(1, 6) * 6144 * 256 - 1, [length - 1]])
+    cases["wide"] = (pos, rng.integers(0, 4, len(pos)), length, 4)
     max_err = 0.0
     for name, (pos, chan, length, n_ch) in cases.items():
-        ev_pos, ev_chan, ev_off, length_pad = tpk.prepare(pos, chan, length)
-        t = [torch.from_numpy(a).to(dev) for a in (ev_pos, ev_chan, ev_off)]
+        ev_pos, ev_chan, length_pad = tpk.prepare(pos, chan, length)
+        t = [ev_pos.to(dev), ev_chan.to(dev)]
         k = tpk.pileup_counts_kernel(*t, length_pad)
         p = tpk.pileup_counts_plain(*t, length_pad)
         sync()
@@ -508,18 +609,27 @@ def counts_phase(fasta, bam):
                 k[:length, :n_ch].cpu().numpy(), host)):
             fail(f"pileup_counts {name}: kernel != plain or host bincount "
                  f"(max abs err vs plain {err})")
-        log(f"pileup_counts {name:11s}: bit-identical to plain and the host "
-            f"bincount ({len(pos)} events, length {length}, {n_ch} "
+        log(f"pileup_counts {name:18s}: bit-identical to plain and the "
+            f"host bincount ({len(pos)} events, length {length}, {n_ch} "
             f"channels)")
     pos, chan, length, n_ch = max(calls, key=lambda c: len(c[0]))
-    ev_pos, ev_chan, ev_off, length_pad = tpk.prepare(pos, chan, length)
-    t = [torch.from_numpy(a).to(dev) for a in (ev_pos, ev_chan, ev_off)]
+    ev_pos, ev_chan, length_pad = tpk.prepare(pos, chan, length)
+    t = [ev_pos.to(dev), ev_chan.to(dev)]
     want = tpk.pileup_counts_plain(*t, length_pad)
+    n_bytes = ev_pos.nbytes + ev_chan.nbytes + length_pad * tpk.C_PAD * 4
+    copies = [([a.clone() for a in t], torch.empty_like(want))
+              for _ in range(l2_copies(n_bytes))]
     out = torch.empty_like(want)
-    ms = graph_ms(lambda: launch_pileup_counts(
-        *t, length_pad // tpk.POS_TILE, out))
+    ms = graph_ms(lambda: launch_pileup_counts(*t, length_pad, out))
     if not torch.equal(out, want):
         fail("pileup_counts: graph-launched kernel != plain")
+    cold_ms = rotated_graph_ms(
+        [lambda c=c: launch_pileup_counts(*c[0], length_pad, c[1])
+         for c in copies], iters=4 * len(copies))
+    if not all(torch.equal(c[1], want) for c in copies):
+        fail("pileup_counts: cold graph-launched kernel != plain")
+    log("pileup_counts, device ms by pass: " + json.dumps(kernel_breakdown(
+        lambda: launch_pileup_counts(*t, length_pad, out))))
     wrapper_ms = cuda_time(lambda: tpk.pileup_counts_kernel(*t, length_pad))
     plain_ms = cuda_time(lambda: tpk.pileup_counts_plain(*t, length_pad),
                          iters=5)
@@ -531,24 +641,34 @@ def counts_phase(fasta, bam):
              "function")
     library_ms = cuda_time(lambda: torch.bincount(key,
                                                   minlength=length * n_ch))
-    # what the builder pays per call: host bucketing, copies both ways
+    # what the builder pays per call (dtype conversion into pinned memory,
+    # copies both ways, the kernel), after one call that warms the pinned
+    # host allocator; and the conversion alone
+    tpk.pileup_counts(pos, chan, length, n_ch, "kernel", DEVICE)
     t0 = time.perf_counter()
     for _ in range(5):
         tpk.pileup_counts(pos, chan, length, n_ch, "kernel", DEVICE)
     dispatch_ms = (time.perf_counter() - t0) / 5 * 1e3
-    n_bytes = (ev_pos.nbytes + ev_chan.nbytes + ev_off.nbytes
-               + length_pad * tpk.C_PAD * 4)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        tpk.prepare(pos, chan, length, pin=True)
+    prepare_ms = (time.perf_counter() - t0) / 5 * 1e3
     bound_ms, bound_by = bound(n_bytes, len(pos))
-    res = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "dispatch_ms": dispatch_ms,
+    res = {"ms": ms, "cold_ms": cold_ms,
+           "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "dispatch_ms": dispatch_ms, "prepare_ms": prepare_ms,
            "events": len(pos), "bytes": n_bytes, "max_abs_err": max_err}
-    log(f"pileup_counts at the main path's largest call ({len(pos)} events, "
-        f"length {length}, {n_ch} channels): kernel alone {ms:.4f} ms, "
-        f"wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"(bincount) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({n_bytes} B at 3.35 TB/s); the builder's whole call (bucketing, "
-        f"copies both ways) {dispatch_ms:.4f} ms on the host clock")
+    log(f"pileup_counts at the main path's largest call ({len(pos)} events "
+        f"in the builder's order, length {length}, {n_ch} channels): whole "
+        f"operation alone {ms:.4f} ms warm, {cold_ms:.4f} ms with L2 cold "
+        f"({len(copies)} rotated copies); the wrapper "
+        f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, library (bincount) "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({n_bytes} B at "
+        f"3.35 TB/s); the builder's whole call {dispatch_ms:.4f} ms on the "
+        f"host clock, of which the dtype conversion into pinned memory "
+        f"{prepare_ms:.4f} ms")
     return res
 
 
@@ -631,10 +751,45 @@ def slab_evidence(net, forward, wire, codes):
         tnet.NET_SLAB.update(saved)
 
 
+def chunk_stage_timer(fp):
+    """Patches fused_pileup's stage_chunk and staged_tensors (the events
+    wire's host staging and its host-to-card copies, both called by
+    FusedChunkCaller.call_chunk in one prefetch thread per chunk) with
+    host-clock timers. Returns (per-chunk records, restore)."""
+    import threading
+
+    records = []
+    last = threading.local()
+    stage, to_dev = fp.stage_chunk, fp.staged_tensors
+
+    def timed_stage(*a, **k):
+        t0 = time.perf_counter()
+        st = stage(*a, **k)
+        last.stage = (time.perf_counter() - t0, len(st.ev_pos),
+                      sum(getattr(st, k).nbytes for k in EV_KEYS))
+        return st
+
+    def timed_to_dev(*a, **k):
+        t0 = time.perf_counter()
+        out = to_dev(*a, **k)
+        stage_s, n_ev, n_bytes = last.stage
+        records.append({"events": n_ev, "event_bytes": n_bytes,
+                        "stage_s": stage_s,
+                        "h2d_s": time.perf_counter() - t0})
+        return out
+
+    def restore():
+        fp.stage_chunk, fp.staged_tensors = stage, to_dev
+
+    fp.stage_chunk, fp.staged_tensors = timed_stage, timed_to_dev
+    return records, restore
+
+
 def e2e_phase(work, fasta, bam):
     from clair3_rna_torch.cli import main as cli_main
     from clair3_rna_torch.models.network import init_params
     from clair3_rna_torch.models.params_io import save_params
+    from clair3_rna_torch.ops import fused_pileup as fp
     from clair3_rna_torch.ops import fused_scatter as fsc
     from clair3_rna_torch.ops import pileup_kernel as tpk
     from clair3_rna_torch.ops import tilelet as tlt
@@ -660,6 +815,10 @@ def e2e_phase(work, fasta, bam):
         out = os.path.join(work, f"out_{name}")
         os.environ.update(env)
         sync()
+        # the events wire's staging and copies, timed per chunk (host
+        # clock; a few perf_counter calls per chunk)
+        chunks, restore = (chunk_stage_timer(fp) if name == "fused_events"
+                           else ([], lambda: None))
         for mod in counters:
             mod.reset_launches()
         t0 = time.time()
@@ -671,9 +830,14 @@ def e2e_phase(work, fasta, bam):
                 "--no_compress", "--include_all_ctgs"])
             sync()
         finally:
+            restore()
             for key in env:
                 os.environ.pop(key)
         wall = time.time() - t0
+        for i, c in enumerate(chunks):
+            log(f"e2e {name} chunk {i}: {c['events']} events "
+                f"({c['event_bytes']} B), staging {c['stage_s']:.4f} s, "
+                f"host-to-card copies {c['h2d_s']:.4f} s (host clock)")
         launches = {k: v for mod in counters for k, v in mod.launches.items()}
         with open(outputs[0]) as f:
             body = [line for line in f if not line.startswith("#")]
@@ -684,7 +848,7 @@ def e2e_phase(work, fasta, bam):
                       # thread-summed stage seconds (CallStats): build
                       # overlaps across the two prefetch threads
                       "build_s": stats.build_s, "infer_s": stats.infer_s,
-                      "decode_s": stats.decode_s}
+                      "decode_s": stats.decode_s, "chunks": chunks}
         log(f"e2e {name}: {wall:.2f} s wall, {stats.candidates} candidate "
             f"sites ({stats.candidates / wall:.1f} sites/s), {len(body)} "
             f"VCF rows, kernel launches {launches}, fused counters "
@@ -780,12 +944,13 @@ def main():
             "source": f"clair3_rna_torch/csrc/{src}", "replaces": line,
             "launches": runs[run]["launches"][fn],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "cold_ms": k.get("cold_ms"),
             "wrapper_ms": k["wrapper_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k.get("library_ms")})
     summary = {name: {k: r[k] for k in ("wall_s", "candidates", "rows",
                                          "sites_per_s", "build_s", "infer_s",
-                                         "decode_s", "fused")}
+                                         "decode_s", "fused", "chunks")}
                for name, r in runs.items()}
     log("e2e summary " + json.dumps(summary))
     print(f"[chip_smoke] card: {card_line()}")

@@ -87,11 +87,11 @@ def _fn(src, name, argtypes):
     return fn
 
 
-def _ptr(t):
+def _ptr(t, align=4):
     if t is None:
         return None
-    if t.data_ptr() % 4:
-        raise ValueError("kernel input must be 4-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"kernel input must be {align}-byte aligned")
     return t.data_ptr()
 
 
@@ -114,35 +114,57 @@ def launch_tilelet(wire, phased, codes, valid, row_off, rank, strand, hp,
         raise RuntimeError(f"tilelet kernel launch failed: CUDA error {err}")
 
 
-def launch_fused_scatter(pos, chan, group, rank, ev_off, n_tiles, width,
-                         counts, grank):
-    """Enqueue csrc/scatter.cu's K3 entry point on the current stream
-    (inputs checked by ops/fused_scatter.fused_scatter). Raises on a
+def _scatter_scratch(k3, n_events, limit, device):
+    """csrc/scatter.cu's scratch buffer (the bucketed events and tile
+    offsets): uint8, sized by the source's own plan for this launch."""
+    import torch
+
+    fn = getattr(_load("scatter.cu"), "scatter_scratch_bytes")
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
+    fn.restype = ctypes.c_longlong
+    n = fn(int(k3), int(n_events), int(limit))
+    if n < 0:
+        raise RuntimeError("scatter kernel: no bucketing plan for "
+                           f"{n_events} events over {limit} positions")
+    return torch.empty(n, dtype=torch.uint8, device=device)
+
+
+def launch_fused_scatter(pos, chan, group, rank, width, counts, grank):
+    """Enqueue csrc/scatter.cu's K3 operation (bucketing by tile on the
+    card, then one cluster per tile) on the current stream, for events in
+    any order (inputs checked by ops/fused_scatter.fused_scatter; pos and
+    rank 16-byte aligned, chan and group 4-byte aligned). Raises on a
     refused launch."""
     import torch
 
     p = ctypes.c_void_p
     fn = _fn("scatter.cu", "fused_scatter_launch",
-             [p, p, p, p, p, ctypes.c_int, ctypes.c_longlong, p, p, p])
+             [p, p, p, p, ctypes.c_longlong, ctypes.c_longlong, p, p, p,
+              ctypes.c_longlong, p])
+    scratch = _scatter_scratch(True, pos.shape[0], width, pos.device)
     stream = torch.cuda.current_stream(pos.device).cuda_stream
-    err = fn(pos.data_ptr(), chan.data_ptr(), group.data_ptr(),
-             rank.data_ptr(), ev_off.data_ptr(), int(n_tiles), int(width),
-             counts.data_ptr(), grank.data_ptr(), stream)
+    err = fn(_ptr(pos, 16), _ptr(chan), _ptr(group), _ptr(rank, 16),
+             int(pos.shape[0]), int(width), _ptr(counts, 16),
+             _ptr(grank, 16), _ptr(scratch, 16), scratch.numel(), stream)
     if err != 0:
         raise RuntimeError(f"scatter kernel launch failed: CUDA error {err}")
 
 
-def launch_pileup_counts(pos, chan, ev_off, n_tiles, out):
-    """Enqueue csrc/scatter.cu's K4 entry point on the current stream
-    (inputs checked by ops/pileup_kernel.pileup_counts_kernel; `out` is
-    int32 [length_pad, 32]). Raises on a refused launch."""
+def launch_pileup_counts(pos, chan, length_pad, out):
+    """Enqueue csrc/scatter.cu's K4 operation (bucketing by tile on the
+    card, then one cluster per tile) on the current stream, for events in
+    any order (inputs checked by ops/pileup_kernel.pileup_counts_kernel;
+    `out` is int32 [length_pad, 32]; pos 16-byte aligned, chan 4-byte
+    aligned). Raises on a refused launch."""
     import torch
 
     p = ctypes.c_void_p
     fn = _fn("scatter.cu", "pileup_counts_launch",
-             [p, p, p, ctypes.c_int, p, p])
+             [p, p, ctypes.c_longlong, ctypes.c_longlong, p, p,
+              ctypes.c_longlong, p])
+    scratch = _scatter_scratch(False, pos.shape[0], length_pad, pos.device)
     stream = torch.cuda.current_stream(pos.device).cuda_stream
-    err = fn(pos.data_ptr(), chan.data_ptr(), ev_off.data_ptr(),
-             int(n_tiles), out.data_ptr(), stream)
+    err = fn(_ptr(pos, 16), _ptr(chan), int(pos.shape[0]), int(length_pad),
+             _ptr(out), _ptr(scratch, 16), scratch.numel(), stream)
     if err != 0:
         raise RuntimeError(f"count kernel launch failed: CUDA error {err}")

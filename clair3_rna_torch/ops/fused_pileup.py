@@ -93,19 +93,18 @@ def _pad_pow2(arr, fill, min_size=1024):
 class StagedChunk:
     """Host-staged flat-event arrays for one chunk (mode="events").
 
-    Events are bucketed by fsc.POS_TILE tile (fsc.bucket_events); ev_off
-    gives each tile's range. Nothing is padded: every event is real and
-    lies in [0, width)."""
+    Events stay in staging order (base, star, insertion, deletion events,
+    each read-major); the scatter kernel takes any order. Nothing is
+    padded: every event is real and lies in [0, width)."""
 
     width: int
     core_lo: int
     core_hi: int
     start: int
-    ev_pos: np.ndarray        # [E] int32 position offsets, tile-bucketed
+    ev_pos: np.ndarray        # [E] int32 position offsets
     ev_chan: np.ndarray       # [E] int8 channel 0..17
     ev_group: np.ndarray      # [E] int8 0..5, GROUP_NONE for stars
     ev_rank: np.ndarray       # [E] int32
-    ev_off: np.ndarray        # [width / fsc.POS_TILE + 1] int32
     cover_pos: np.ndarray     # [K] int32 positions with cover deltas
     cover_delta: np.ndarray   # [K] int32
     i1_pos: np.ndarray        # [K] int32 positions with I1/i1/D1/d1 patches
@@ -271,8 +270,8 @@ def _tail_arrays(data, ref_codes, cfg, width_pad, cover_allow, cand_allow):
 def stage_chunk(events, ref_codes, cfg: PileupConfig, core_lo, core_hi,
                 width_pad=None, cover_allow=None, cand_allow=None):
     """PileupEvents -> StagedChunk (one host pass; no dense image built):
-    base, star, insertion and deletion events as one flat list, bucketed
-    by tile for the scatter kernel."""
+    base, star, insertion and deletion events as one flat list, in the
+    order they come, for the scatter kernel."""
     width = events.end - events.start
     if width_pad is None:
         width_pad = _width_pad(width)
@@ -285,19 +284,19 @@ def stage_chunk(events, ref_codes, cfg: PileupConfig, core_lo, core_hi,
         events.base_code.astype(np.int32) + 9 * events.base_strand,
         np.where(events.star_strand == 0, CI["*"], CI["#"]),
         np.where(events.ins_strand == 0, CI["I"], CI["i"]),
-        np.where(events.del_strand == 0, CI["D"], CI["d"])])
+        np.where(events.del_strand == 0, CI["D"], CI["d"])]).astype(np.int8)
     ev_group = np.concatenate([
         events.base_code.astype(np.int32),
         np.full(len(events.star_pos), GROUP_NONE, np.int32),
         np.full(len(events.ins_pos), 4, np.int32),
-        np.full(len(events.del_pos), 5, np.int32)])
+        np.full(len(events.del_pos), 5, np.int32)]).astype(np.int8)
     ev_rank = np.concatenate([
         events.base_rank, np.zeros(len(events.star_pos), np.int64),
         events.ins_rank, events.del_rank]).astype(np.int32)
-    b = fsc.bucket_events(ev_pos, ev_chan, ev_group, ev_rank, width_pad)
     return StagedChunk(
         width=width_pad, core_lo=core_lo - start, core_hi=core_hi - start,
-        start=start, **b,
+        start=start, ev_pos=ev_pos, ev_chan=ev_chan, ev_group=ev_group,
+        ev_rank=ev_rank,
         **_tail_arrays(events, ref_codes, cfg, width_pad, cover_allow,
                        cand_allow))
 
@@ -440,7 +439,7 @@ def make_fused_fn(params, cfg: PileupConfig, *, max_candidates=1024,
         read 2^30; _tail masks them by count)."""
         counts_f, ranks_f = fsc.fused_scatter(
             t["ev_pos"], t["ev_chan"], t["ev_group"], t["ev_rank"],
-            t["ev_off"], t["ref_code"].shape[0])
+            t["ref_code"].shape[0])
         return (counts_f[:n_ch].T.to(torch.int32).contiguous(),
                 ranks_f[:6].T.to(torch.int32))
 

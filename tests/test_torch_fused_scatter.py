@@ -1,11 +1,13 @@
 """The flat-event scatter (K3) in the PyTorch port against the JAX package.
 
 The port's plain PyTorch version (what `fused_scatter` runs on CPU tensors)
-must equal the JAX package's Pallas kernel run in interpret mode and both
-numpy oracles EXACTLY: counts and ranks are integers. Mirrors
-tests/test_fused_scatter.py (tile boundaries, empty tiles, rank ties,
-pad inertness, the max-rank guard). The CUDA kernel against the plain
-version runs only on a card (marker `cuda`).
+must equal the JAX package's Pallas kernel run in interpret mode (on
+events bucketed by the JAX package's own `bucket_events`) and both numpy
+oracles EXACTLY: counts and ranks are integers. The port takes events in
+any order, unbucketed. Mirrors tests/test_fused_scatter.py (tile
+boundaries, empty tiles, rank ties, pad inertness, the max-rank guard),
+plus order invariance and the inert-event rule. The CUDA kernel against
+the plain version runs only on a card (marker `cuda`), on shuffled events.
 """
 
 import numpy as np
@@ -23,12 +25,17 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _args(ev_pos, ev_chan, ev_group, ev_rank, device="cpu"):
+    """The events as the wrapper's tensors, in the order given."""
+    return [_t(np.asarray(a, dt)).to(device) for a, dt in (
+        (ev_pos, np.int32), (ev_chan, np.int8), (ev_group, np.int8),
+        (ev_rank, np.int32))]
+
+
 def _port(ev_pos, ev_chan, ev_group, ev_rank, width_pad, device="cpu"):
-    """Bucket on the host, scatter through the wrapper."""
-    b = tfs.bucket_events(ev_pos, ev_chan, ev_group, ev_rank, width_pad)
-    t = {k: _t(v).to(device) for k, v in b.items()}
-    return tfs.fused_scatter(t["ev_pos"], t["ev_chan"], t["ev_group"],
-                             t["ev_rank"], t["ev_off"], width_pad)
+    """Scatter through the wrapper, events unbucketed."""
+    return tfs.fused_scatter(*_args(ev_pos, ev_chan, ev_group, ev_rank,
+                                    device), width_pad)
 
 
 def _jax_all(ev_pos, ev_chan, ev_group, ev_rank, width_pad):
@@ -136,40 +143,61 @@ def test_empty_input_and_pad_inertness():
     _assert_exact((pc, pr), ref, "pads:port_oracle")
 
 
-def test_bucket_events_offsets():
-    """Events come out stably sorted by tile; tile t owns exactly the
-    events of [ev_off[t], ev_off[t+1]), each inside the tile; events
-    outside [0, W) fall outside every tile's range."""
-    rng = np.random.default_rng(5)
-    n, width_pad = 5000, 4096
-    pos = rng.integers(-300, width_pad + 600, n).astype(np.int32)
-    rank = np.arange(n, dtype=np.int32)
-    b = tfs.bucket_events(pos, np.zeros(n, np.int8), np.zeros(n, np.int8),
-                          rank, width_pad)
-    off = b["ev_off"]
-    n_tiles = width_pad // tfs.POS_TILE
-    assert off.dtype == np.int32 and off.shape == (n_tiles + 1,)
-    assert (np.diff(off) >= 0).all()
-    key = b["ev_pos"] >> tfs.TILE_SHIFT
-    assert (np.diff(key) >= 0).all()
-    for t in range(n_tiles):
-        sel = slice(off[t], off[t + 1])
-        assert (key[sel] == t).all()
-        assert (np.diff(b["ev_rank"][sel]) > 0).all()  # stable
-    owned = off[-1] - off[0]
-    assert owned == int(((pos >= 0) & (pos < width_pad)).sum())
-    assert (b["ev_pos"][:off[0]] < 0).all()
-    assert (b["ev_pos"][off[-1]:] >= width_pad).all()
+@pytest.mark.parametrize("seed", [11, 12, 13])
+def test_order_invariance(seed):
+    """The same events shuffled with a numpy seed give outputs identical
+    to the events in staging order, and equal to the JAX oracle."""
+    ev = _random_events("uniform")
+    width_pad = CASES["uniform"]["width_pad"]
+    perm = np.random.default_rng(seed).permutation(len(ev[0]))
+    shuffled = _port(*(a[perm] for a in ev), width_pad)
+    in_order = _port(*ev, width_pad)
+    assert all(torch.equal(a, b) for a, b in zip(shuffled, in_order))
+    from clair3_rna_tpu.ops import fused_scatter as jfs
+    _assert_exact(shuffled, jfs.scatter_oracle(*ev, width_pad),
+                  f"shuffled {seed}:jax_oracle")
+
+
+def test_inert_events():
+    """An event at W, beyond it, at a negative position or with a channel
+    outside [0, 32) counts nothing and takes no rank; a group-6 or
+    group-7 event counts but takes no rank. Real events mixed with them
+    give exactly what the port's oracle gives on all of them, and what the
+    JAX oracle gives on the same events with the bad-channel ones dropped
+    (the JAX oracle indexes its count rows by channel, so it cannot take
+    them)."""
+    from clair3_rna_tpu.ops import fused_scatter as jfs
+
+    width_pad = 2048
+    real = _random_events("tile_boundary")
+    bad = (np.array([2048, 2048, 9000, -1, -300, 5, 6, 7, 900, 901],
+                    np.int32),
+           np.array([0, 3, 1, 2, 0, 32, 40, -1, 4, 5], np.int8),
+           np.array([0, 1, 2, 3, 4, 0, 1, 2, 6, 7], np.int8),
+           np.array([0, 0, 0, 0, 0, 0, 0, 0, 0, 0], np.int32))
+    ev = tuple(np.concatenate([a, b]) for a, b in zip(real, bad))
+    keep = (ev[1] >= 0) & (ev[1] < tfs.C_PAD)
+    want = jfs.scatter_oracle(*(a[keep] for a in ev), width_pad)
+    pc, pr = _port(*ev, width_pad)
+    _assert_exact((pc, pr), want, "inert:jax_oracle")
+    _assert_exact((pc, pr), tfs.scatter_oracle(*ev, width_pad),
+                  "inert:port_oracle")
+    # only the group-6/7 events at 900/901 count; none of the rank-0
+    # events ranks
+    assert int(pc.sum()) == len(real[0]) + 2
+    assert pc[4, 900] == 1 and pc[5, 901] == 1
+    assert (pr[:, 900:902] == tfs.RANK_INF_F).all()
+    assert (pr[:, 5:8] == tfs.RANK_INF_F).all()
 
 
 def test_constants_match_jax():
-    """The kernel contract's constants; the port's tile width (256, one
-    CTA) is its own choice, the TPU kernel's is 512."""
+    """The kernel contract's constants. The port has no position tile:
+    its kernel takes events unbucketed (the TPU kernel's tile is 512)."""
     from clair3_rna_tpu.ops import fused_scatter as jfs
 
     for name in ("C_PAD", "G_PAD", "RANK_INF_F", "MAX_RANK"):
         assert getattr(tfs, name) == getattr(jfs, name), name
-    assert tfs.POS_TILE == 1 << tfs.TILE_SHIFT
+    assert not hasattr(tfs, "POS_TILE") and not hasattr(tfs, "bucket_events")
 
 
 def test_max_rank_fallback_guard(monkeypatch):
@@ -211,49 +239,70 @@ def test_max_rank_fallback_guard(monkeypatch):
 
 
 def test_wrapper_rejects_bad_inputs():
-    ev = _random_events("tiny")
-    b = {k: _t(v) for k, v in tfs.bucket_events(*ev, 1024).items()}
-    args = [b["ev_pos"], b["ev_chan"], b["ev_group"], b["ev_rank"],
-            b["ev_off"]]
+    args = _args(*_random_events("tiny"))
     with pytest.raises(TypeError):
         tfs.fused_scatter(args[0].to(torch.int64), *args[1:], 1024)
     with pytest.raises(TypeError):
-        tfs.fused_scatter(*args[:3], args[3].to(torch.float32), args[4],
-                          1024)
+        tfs.fused_scatter(*args[:3], args[3].to(torch.float32), 1024)
     with pytest.raises(ValueError):
-        tfs.fused_scatter(*args[:4], args[4][:-1], 1024)
+        tfs.fused_scatter(args[0], args[1][:-1], *args[2:], 1024)
     with pytest.raises(ValueError):
-        tfs.fused_scatter(*args, 1000)
+        tfs.fused_scatter(*args, 0)
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="unsupported device"):
         tfs.fused_scatter(*meta, 1024)
 
 
+# the kernel buckets tiles in ranges of this many 256-position tiles
+# (csrc/scatter.cu RANGE_TILES); the wide case spans several
+RANGE_POSITIONS = 6144 * 256
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(CASES) + ["deep_ties"])
+@pytest.mark.parametrize("case", sorted(CASES) + ["deep_ties", "deep_few",
+                                                  "wide"])
 def test_kernel_matches_plain_on_card(case):
+    """csrc/scatter.cu against the plain version, on shuffled events."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(9)
     if case == "deep_ties":
-        # one deep column per tile: heavy atomic contention, many ties,
-        # groups 6/7 and pads at W
-        rng = np.random.default_rng(9)
+        # one deep column per 256 positions: heavy atomic contention, many
+        # ties, groups 6/7 and pads at W
         n, width_pad = 200_000, 16384
         ev = (np.concatenate([rng.integers(0, 64, n) * 256 + 17,
                               np.full(500, width_pad)]).astype(np.int32),
               rng.integers(0, 18, n + 500).astype(np.int8),
               rng.integers(0, 8, n + 500).astype(np.int8),
               rng.integers(0, 50, n + 500).astype(np.int32))
+    elif case == "deep_few":
+        # every event on three positions: the atomics collide all the time
+        n, width_pad = 300_001, 16384
+        ev = (rng.choice([5, 6, 9000], n).astype(np.int32),
+              rng.integers(0, 18, n).astype(np.int8),
+              rng.integers(0, 8, n).astype(np.int8),
+              rng.integers(0, 1000, n).astype(np.int32))
+    elif case == "wide":
+        # 2^23 positions, six bucketing ranges, the last one partial:
+        # events spread over all of them and piled on each range boundary
+        n, width_pad = 200_000, 1 << 23
+        edges = np.arange(1, 6) * RANGE_POSITIONS
+        pos = np.concatenate([rng.integers(0, width_pad, n),
+                              rng.choice(edges, 5000)
+                              + rng.integers(-3, 3, 5000),
+                              [0, width_pad - 1, width_pad, -1]])
+        m = len(pos)
+        ev = (pos.astype(np.int32), rng.integers(0, 18, m).astype(np.int8),
+              rng.integers(0, 8, m).astype(np.int8),
+              rng.integers(0, 1000, m).astype(np.int32))
     else:
         ev = _random_events(case)
         width_pad = CASES[case]["width_pad"]
+    perm = rng.permutation(len(ev[0]))
+    args = _args(*(a[perm] for a in ev), device="cuda")
     before = tfs.launches["fused_scatter"]
-    kc, kr = _port(*ev, width_pad, device="cuda")
+    kc, kr = tfs.fused_scatter(*args, width_pad)
     assert tfs.launches["fused_scatter"] == before + 1
-    b = {k: _t(v).cuda() for k, v in
-         tfs.bucket_events(*ev, width_pad).items()}
-    pc, pr = tfs.fused_scatter_plain(b["ev_pos"], b["ev_chan"],
-                                     b["ev_group"], b["ev_rank"],
-                                     b["ev_off"], width_pad)
+    pc, pr = tfs.fused_scatter_plain(*args, width_pad)
     torch.cuda.synchronize()
     assert torch.equal(kc, pc) and torch.equal(kr, pr)

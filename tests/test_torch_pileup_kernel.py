@@ -4,10 +4,10 @@ the JAX package.
 The port's plain PyTorch version (what `pileup_counts_kernel` runs on CPU
 tensors) and its torch.bincount version must equal a numpy oracle and the
 JAX package's Pallas kernel run in interpret mode EXACTLY (integer
-counts), at 18, 30 and 4 channels. The pure-array builder with the kernel
-backend must give the same tensor rows as its host backend and as the JAX
-package's device backend. The CUDA kernel against the plain version runs
-only on a card (marker `cuda`).
+counts), at 18, 30 and 4 channels, for events in any order. The pure-array
+builder with the kernel backend must give the same tensor rows as its host
+backend and as the JAX package's device backend. The CUDA kernel against
+the plain version runs only on a card (marker `cuda`), on shuffled events.
 """
 
 import numpy as np
@@ -76,24 +76,65 @@ def test_counts_match_jax(case):
 
 
 def test_plain_pads_and_empty_input():
-    """The plain version counts only what the kernel's CTAs read: -1 pads
-    (the JAX staging's), positions at or beyond length_pad and channels
-    beyond 31 are inert; zero events return zeros with no launch."""
-    pos = np.array([-1, -1, 3, 3, 255, 256, 511, 512, 600], np.int32)
-    chan = np.array([0, 5, 17, 17, 31, 0, 29, 1, 40], np.int32)
-    ev_pos, ev_chan, ev_off, length_pad = tpk.prepare(pos, chan, 512)
-    assert length_pad == 512 and list(ev_off) == [2, 5, 7]
-    out = tpk.pileup_counts_kernel(torch.from_numpy(ev_pos),
-                                   torch.from_numpy(ev_chan),
-                                   torch.from_numpy(ev_off), length_pad)
+    """-1 pads (the JAX staging's), positions at or beyond length_pad and
+    channels beyond 31 are inert; `prepare` keeps the events' order and
+    only converts dtypes and pads the length; zero events return zeros
+    with no launch."""
+    pos = np.array([-1, -1, 3, 3, 255, 256, 511, 512, 600], np.int64)
+    chan = np.array([0, 5, 17, 17, 31, 40, 29, 1, 0], np.int64)
+    ev_pos, ev_chan, length_pad = tpk.prepare(pos, chan, 500)
+    assert length_pad == 512
+    assert ev_pos.dtype == torch.int32 and ev_chan.dtype == torch.int8
+    assert ev_pos.tolist() == pos.tolist()
+    assert ev_chan.tolist() == chan.tolist()
+    out = tpk.pileup_counts_kernel(ev_pos, ev_chan, length_pad)
     assert out.dtype == torch.int32 and out.shape == (512, tpk.C_PAD)
-    assert int(out.sum()) == 5
+    assert int(out.sum()) == 4 and not out[256].any()
     assert out[3, 17] == 2 and out[255, 31] == 1 and out[511, 29] == 1
     before = dict(tpk.launches)
     z = tpk.pileup_counts(np.zeros(0, np.int32), np.zeros(0, np.int32), 77,
                           18, "kernel", "cuda")
     assert z.shape == (77, 18) and z.dtype == np.int32 and not z.any()
     assert tpk.launches == before
+
+
+@pytest.mark.parametrize("seed", [21, 22, 23])
+def test_order_invariance(seed):
+    """The same events shuffled with a numpy seed give counts identical to
+    the events in the order made, and equal to the JAX XLA version."""
+    from clair3_rna_tpu.ops import pileup_kernel as jpk
+
+    make, length, n_ch = CASES["30ch_phased"]
+    pos, chan = make()
+    perm = np.random.default_rng(seed).permutation(len(pos))
+    shuffled = tpk.pileup_counts(pos[perm], chan[perm], length, n_ch,
+                                 "kernel", "cpu")
+    in_order = tpk.pileup_counts(pos, chan, length, n_ch, "kernel", "cpu")
+    np.testing.assert_array_equal(shuffled, in_order)
+    np.testing.assert_array_equal(
+        shuffled, jpk.pileup_counts_jax(pos, chan, length, n_ch))
+
+
+def test_inert_events():
+    """Events at a negative position, at or beyond length_pad, or with a
+    channel outside [0, 32) count nothing: real events mixed with them
+    give exactly the numpy oracle's and the JAX XLA version's counts of
+    the real events alone (the JAX version would spill an out-of-range
+    channel into the next position, so it is not given them)."""
+    from clair3_rna_tpu.ops import pileup_kernel as jpk
+
+    pos, chan = _random_events(6, 4000, 700, 32)
+    bad_pos = np.array([-1, -77, 768, 5000, 10, 11, 12], np.int32)
+    bad_chan = np.array([0, 3, 1, 31, 32, 100, -1], np.int32)
+    length_pad = 768
+    ev_pos, ev_chan, _ = tpk.prepare(np.concatenate([bad_pos, pos]),
+                                     np.concatenate([bad_chan, chan]), 700)
+    out = tpk.pileup_counts_plain(ev_pos, ev_chan, length_pad).numpy()
+    assert int(out.sum()) == len(pos) and not out[700:].any()
+    want = _oracle(pos, chan, 700, 32)
+    np.testing.assert_array_equal(out[:700], want)
+    np.testing.assert_array_equal(out[:700],
+                                  jpk.pileup_counts_jax(pos, chan, 700, 32))
 
 
 def test_builder_kernel_backend_matches_host_and_jax(tmp_path, monkeypatch):
@@ -170,14 +211,14 @@ def test_builder_backend_choice(monkeypatch):
 
 
 def test_wrapper_rejects_bad_inputs():
-    pos, chan, off, length_pad = tpk.prepare(*_random_events(5, 100, 300,
-                                                             18), 300)
-    args = [torch.from_numpy(a) for a in (pos, chan, off)]
+    pos, chan = _random_events(5, 100, 300, 18)
+    args = list(tpk.prepare(pos, chan, 300)[:2])
+    length_pad = 512
     with pytest.raises(TypeError):
-        tpk.pileup_counts_kernel(args[0].to(torch.int64), *args[1:],
+        tpk.pileup_counts_kernel(args[0].to(torch.int64), args[1],
                                  length_pad)
     with pytest.raises(ValueError):
-        tpk.pileup_counts_kernel(*args[:2], args[2][:-1], length_pad)
+        tpk.pileup_counts_kernel(args[0], args[1][:-1], length_pad)
     with pytest.raises(ValueError):
         tpk.pileup_counts_kernel(*args, 300)
     with pytest.raises(ValueError, match="unsupported device"):
@@ -187,22 +228,42 @@ def test_wrapper_rejects_bad_inputs():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(CASES) + ["deep_32ch"])
+@pytest.mark.parametrize("case", sorted(CASES) + ["deep_32ch", "deep_few",
+                                                  "wide"])
 def test_kernel_matches_plain_on_card(case):
+    """csrc/scatter.cu against the plain version, on shuffled events."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    rng = np.random.RandomState(8)
     if case == "deep_32ch":
         # heavy contention on a few columns, every channel id, -1 pads
-        rng = np.random.RandomState(8)
         pos = np.concatenate([rng.randint(0, 8, 300_000) * 97,
                               np.full(100, -1)]).astype(np.int32)
         chan = rng.randint(0, 32, len(pos)).astype(np.int32)
         length, n_ch = 1000, 32
+    elif case == "deep_few":
+        # every event on three positions, four channels: the atomics
+        # collide all the time
+        pos = rng.choice([0, 1, 999], 400_003).astype(np.int32)
+        chan = rng.randint(0, 4, len(pos)).astype(np.int32)
+        length, n_ch = 1000, 4
+    elif case == "wide":
+        # 8 M positions: the kernel buckets them in six ranges of 6144
+        # 256-position tiles (csrc/scatter.cu RANGE_TILES), the last partial
+        length, n_ch = 8_000_000, 4
+        edges = np.arange(1, 6) * 6144 * 256
+        pos = np.concatenate([rng.randint(0, length, 200_000),
+                              rng.choice(edges, 5000)
+                              + rng.randint(-3, 3, 5000),
+                              [0, length - 1]]).astype(np.int32)
+        chan = rng.randint(0, n_ch, len(pos)).astype(np.int32)
     else:
         make, length, n_ch = CASES[case]
         pos, chan = make()
-    ev_pos, ev_chan, ev_off, length_pad = tpk.prepare(pos, chan, length)
-    t = [torch.from_numpy(a).cuda() for a in (ev_pos, ev_chan, ev_off)]
+    perm = rng.permutation(len(pos))
+    pos, chan = pos[perm], chan[perm]
+    ev_pos, ev_chan, length_pad = tpk.prepare(pos, chan, length)
+    t = [ev_pos.cuda(), ev_chan.cuda()]
     before = tpk.launches["pileup_counts"]
     k = tpk.pileup_counts_kernel(*t, length_pad)
     assert tpk.launches["pileup_counts"] == before + 1
@@ -212,4 +273,7 @@ def test_kernel_matches_plain_on_card(case):
     valid = pos >= 0
     np.testing.assert_array_equal(
         k[:length, :n_ch].cpu().numpy(),
+        _oracle(pos[valid], chan[valid], length, n_ch))
+    np.testing.assert_array_equal(
+        tpk.pileup_counts(pos, chan, length, n_ch, "kernel", "cuda"),
         _oracle(pos[valid], chan[valid], length, n_ch))
