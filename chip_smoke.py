@@ -10,11 +10,18 @@ Phases (any failed check raises; the exit code is then non-zero):
    started together);
 3. kernels: the tilelet expansion kernel, v2 wire (K1) and nibble wire
    (K2), unphased and phased, against its plain PyTorch version on the card
-   -- rows of a real staged 100 kb chunk, a deep chunk, and random rows
-   with rank ties, empty tiles and pad rows; counts and ranks must be
-   bit-identical. The kernel alone (launches replayed from a CUDA graph),
-   its wrapper and the plain version are timed with CUDA events at the
-   main path's shape. Then the event scatter kernel (K3) on the events of
+   -- rows of a real staged 100 kb chunk, a deep chunk, a chunk of
+   50-row tiles with one 5,000-row tile, and random rows with rank ties,
+   empty tiles and pad rows; counts and ranks must be bit-identical,
+   through the wrapper as the fused route calls it (row offsets and the
+   deepest tile's rows from the staging), with the offsets only, and
+   without them. The kernel alone (launches replayed from a CUDA graph)
+   warm, with the L2 cold, on the deep chunk, on the one-deep-tile chunk
+   and phased; its wrapper as the fused route calls it and without the
+   offsets; the plain version; and a library yardstick (torch.bincount +
+   torch.scatter_reduce "amin" over slot keys decoded beforehand) are
+   timed with CUDA events; one wrapper call as the fused route makes it
+   must enqueue exactly one kernel. Then the event scatter kernel (K3) on the events of
    the same chunk in the events wire's staging order and shuffled, the
    deep chunk (likewise), and random events in random order with rank
    ties, duplicates, empty stretches, stars, pads, negative positions and
@@ -156,36 +163,31 @@ def l2_copies(n_bytes):
     return 1 + max(1, -(-2 * H100_L2_BYTES // n_bytes))
 
 
-def kernel_only_ms(wire, t, want):
-    """Device milliseconds of the tilelet kernel alone (graph_ms), with
-    precomputed row offsets and preallocated outputs, so the wrapper's
-    searchsorted, allocations and Python enqueue are left out. The last
-    replay's outputs must equal `want` (the plain version's). Launches made
-    here bypass the wrapper's count."""
+def tilelet_launcher(wire, t, phased):
+    """(launch(), counts, grank): one launch of csrc/tilelet.cu straight
+    through its ctypes entry point on `t`'s rows, with the row offsets and
+    the deepest tile's rows as the staging ships them and outputs
+    preallocated, so no wrapper work is left in it. Such launches bypass
+    the wrappers' count."""
     import torch
 
     from clair3_rna_torch.csrc import launch_tilelet
     from clair3_rna_torch.ops import tilelet as tlt
 
     dev = t["codes"].device
-    n_tiles = t["width"] // tlt.POS_TILE
-    row_off = torch.searchsorted(
-        t["tile"], torch.arange(n_tiles + 1, dtype=torch.int32, device=dev),
-        out_int32=True)
+    row_off = t["row_off"]
     counts = torch.empty((tlt.C_PAD, t["width"]), dtype=torch.float32,
                          device=dev)
     grank = torch.empty((tlt.G_PAD, t["width"]), dtype=torch.float32,
                         device=dev)
+    n_tiles = t["width"] // tlt.POS_TILE
 
-    def launch():
-        launch_tilelet(wire, False, t["codes"], t["valid"], row_off,
+    def go():
+        launch_tilelet(wire, phased, t["codes"], t["valid"], row_off,
                        t["rank"], t["strand"], t["hp"], n_tiles, t["width"],
-                       counts, grank)
+                       counts, grank, max_rows=t["max_rows"])
 
-    ms = graph_ms(launch)
-    if not (torch.equal(counts, want[0]) and torch.equal(grank, want[1])):
-        fail(f"tilelet {wire}: graph-launched kernel != plain")
-    return ms
+    return go, counts, grank
 
 
 def make_dataset(work):
@@ -228,17 +230,15 @@ def staged_chunk(bam_path, fasta_path, ctg, start, end, wire):
     return stage_chunk_packed(data, codes, cfg, start, end, wire=wire)
 
 
-def random_rows(rng, n_tiles=64, n_rows=3000):
-    """Tile-sorted random nibble rows: rank ties, holes, empty tiles, hp
-    tags and pad rows (tile == n_tiles)."""
+def padded_rows(nib, tiles, rank, rng, n_tiles):
+    """Nibble codes [R, POS_TILE] with tiles, ranks and random strand and
+    hp -> the staged arrays, padded as the staging pads (pad rows at tile
+    n_tiles, no valid slot)."""
     import numpy as np
 
     from clair3_rna_torch.ops import tilelet as tlt
 
-    live = np.sort(rng.choice(n_tiles, size=n_tiles * 3 // 4, replace=False))
-    tiles = np.sort(rng.choice(live, size=n_rows)).astype(np.int32)
-    nib = rng.integers(0, 4, size=(n_rows, tlt.POS_TILE))
-    nib[rng.random((n_rows, tlt.POS_TILE)) < 0.3] = tlt.EMPTY
+    n_rows = len(tiles)
     codes = ((nib[:, 0::2] << 4) | nib[:, 1::2]).astype(np.uint8)
     r_pad = tlt.quantize_rows(n_rows + 5)
 
@@ -248,9 +248,8 @@ def random_rows(rng, n_tiles=64, n_rows=3000):
 
     return {
         "codes": pad(codes, np.uint8(0xFF)),
-        "tile": pad(tiles, np.int32(n_tiles)),
-        "rank": pad(rng.integers(0, 40, n_rows).astype(np.int32),
-                    np.int32(tlt.MAX_RANK)),
+        "tile": pad(tiles.astype(np.int32), np.int32(n_tiles)),
+        "rank": pad(rank.astype(np.int32), np.int32(tlt.MAX_RANK)),
         "strand": pad(rng.integers(0, 2, n_rows).astype(np.int8),
                       np.int8(0)),
         "hp": pad(rng.integers(0, 3, n_rows).astype(np.int8), np.int8(0)),
@@ -258,7 +257,84 @@ def random_rows(rng, n_tiles=64, n_rows=3000):
     }
 
 
-def kernel_phase(work, fasta, bam):
+def random_rows(rng, n_tiles=64, n_rows=3000):
+    """Tile-sorted random nibble rows: rank ties, holes, empty tiles, hp
+    tags and pad rows (tile == n_tiles)."""
+    import numpy as np
+
+    from clair3_rna_torch.ops import tilelet as tlt
+
+    live = np.sort(rng.choice(n_tiles, size=n_tiles * 3 // 4, replace=False))
+    tiles = np.sort(rng.choice(live, size=n_rows))
+    nib = rng.integers(0, 4, size=(n_rows, tlt.POS_TILE))
+    nib[rng.random((n_rows, tlt.POS_TILE)) < 0.3] = tlt.EMPTY
+    return padded_rows(nib, tiles, rng.integers(0, 40, n_rows), rng,
+                       n_tiles)
+
+
+def one_deep_tile(rng, n_tiles=512, rows=50, deep_rows=5000, deep_tile=300):
+    """A chunk as wide as the main path's (W = 131,072) of 50-row tiles
+    with one 5,000-row tile, as one gene at thousands-fold depth among
+    shallow ones; ranks ascend within each tile, as the staging emits
+    them."""
+    import numpy as np
+
+    from clair3_rna_torch.ops import tilelet as tlt
+
+    per_tile = np.full(n_tiles, rows)
+    per_tile[deep_tile] = deep_rows
+    tiles = np.repeat(np.arange(n_tiles), per_tile)
+    nib = rng.integers(0, 4, size=(len(tiles), tlt.POS_TILE))
+    nib[rng.random(nib.shape) < 0.3] = tlt.EMPTY
+    return padded_rows(nib, tiles, np.arange(len(tiles)), rng, n_tiles)
+
+
+def tilelet_library(wire, t):
+    """The library yardstick for K1/K2: one torch.bincount over (position x
+    32 + channel) keys and one torch.scatter_reduce "amin" over (position x
+    8 + base) keys of the chunk's slots, decoded into those flat keys
+    beforehand (the decode is left out, in the library's favour). Returns
+    (library(), check) where check(want) holds its result to the plain
+    version's."""
+    import torch
+
+    from clair3_rna_torch.ops import tilelet as tlt
+
+    dev = t["codes"].device
+    width = t["width"]
+    code = tlt._decode(t["codes"], t["valid"], wire)           # [R, 256]
+    pos = (t["tile"].long()[:, None] * tlt.POS_TILE
+           + torch.arange(tlt.POS_TILE, device=dev)[None, :])
+    live = (code < 4) & (pos < width)
+    pos, code = pos[live], code[live]
+    row = torch.nonzero(live)[:, 0]
+    ckey = pos * tlt.C_PAD + code + 9 * t["strand"].long()[row]
+    rkey = pos * tlt.G_PAD + code
+    rank = t["rank"][row]
+    rinit = torch.full((width * tlt.G_PAD,), int(tlt.RANK_INF_F),
+                       dtype=torch.int32, device=dev)
+
+    def library():
+        return (torch.bincount(ckey, minlength=width * tlt.C_PAD),
+                torch.scatter_reduce(rinit, 0, rkey, rank, "amin"))
+
+    def check(want):
+        lc, lr = library()
+        if not (torch.equal(lc.reshape(width, tlt.C_PAD).T.float(), want[0])
+                and torch.equal(lr.reshape(width, tlt.G_PAD).T.float(),
+                                want[1])):
+            fail(f"tilelet {wire}: the library yardstick computes another "
+                 "function")
+
+    return library, check
+
+
+def kernel_phase(fasta, bam):
+    """The tilelet kernel (K1 v2 wire, K2 nibble wire) against its plain
+    version on every case, bit-identical, through the wrapper with and
+    without staged row offsets; timings at the main path's shape (the
+    first chr1 chunk), on the deep chunk and on one deep tile among
+    shallow ones."""
     import numpy as np
     import torch
 
@@ -278,70 +354,151 @@ def kernel_phase(work, fasta, bam):
                 # the simulated reads carry no HP tag: random hp values
                 # exercise the phased channels
                 "hp": rng.integers(0, 3, len(st.tl_tile)).astype(np.int8),
+                "row_off": st.tl_row_off, "max_rows": st.tl_max_rows,
                 "width": st.width}
-        rr = random_rows(rng)
-        if wire == "v2":
-            rr["codes"], rr["valid"] = tlt.nibble_to_v2(rr["codes"])
-        else:
-            rr["valid"] = None
-        cases[(wire, "random")] = rr
+        for name, make in (("one_deep", one_deep_tile),
+                           ("random", random_rows)):
+            rr = make(rng)
+            if wire == "v2":
+                rr["codes"], rr["valid"] = tlt.nibble_to_v2(rr["codes"])
+            else:
+                rr["valid"] = None
+            rr["row_off"] = np.searchsorted(
+                rr["tile"], np.arange(rr["width"] // tlt.POS_TILE + 1)
+            ).astype(np.int32)
+            rr["max_rows"] = int(np.diff(rr["row_off"]).max())
+            cases[(wire, name)] = rr
 
     def to_dev(c):
         return {k: (torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                     if isinstance(v, np.ndarray) else v)
                 for k, v in c.items()}
 
-    def run(wire, t, phased):
+    def run(wire, t, phased, offsets="staged"):
+        """A wrapper call: "staged" as the fused route makes it (row offsets
+        and the deepest tile's rows), "offsets" through the public function
+        with the offsets, "none" without them."""
+        if offsets == "staged":
+            return tlt.expand(wire, t["codes"], t["valid"], t["tile"],
+                              t["rank"], t["strand"], t["width"],
+                              tl_hp=t["hp"], phased=phased,
+                              tl_row_off=t["row_off"],
+                              max_rows=t["max_rows"])
+        row_off = t["row_off"] if offsets == "offsets" else None
         if wire == "v2":
             return tlt.tilelet_expand_v2(
                 t["codes"], t["valid"], t["tile"], t["rank"], t["strand"],
-                t["width"], tl_hp=t["hp"], phased=phased)
+                t["width"], tl_hp=t["hp"], phased=phased,
+                tl_row_off=row_off)
         return tlt.tilelet_expand(t["codes"], t["tile"], t["rank"],
                                   t["strand"], t["width"], tl_hp=t["hp"],
-                                  phased=phased)
+                                  phased=phased, tl_row_off=row_off)
 
     def plain(wire, t, phased):
         return tlt.tilelet_expand_plain(
             t["codes"], t["valid"], t["tile"], t["rank"], t["strand"],
             t["hp"], t["width"], phased=phased, wire=wire)
 
+    def case_bytes(c, phased=False):
+        """What one launch must move: each of the tiles' rows read once
+        (codes, validity, rank, strand, and hp when phased; the pad rows
+        past row_off[-1] are never read), the tile offsets, and 40 f32 a
+        position written."""
+        row = (c["codes"].shape[1] + 4 + 1 + (1 if phased else 0)
+               + (c["valid"].shape[1] if c["valid"] is not None else 0))
+        return (int(c["row_off"][-1]) * row + c["row_off"].nbytes
+                + (tlt.C_PAD + tlt.G_PAD) * c["width"] * 4)
+
+    def case_bound(c, phased=False):
+        n_rows = int(c["row_off"][-1])
+        return bound(case_bytes(c, phased), n_rows * tlt.POS_TILE * 4), n_rows
+
+    def alone(wire, t, phased, want):
+        go, oc, og = tilelet_launcher(wire, t, phased)
+        ms = graph_ms(go)
+        if not (torch.equal(oc, want[0]) and torch.equal(og, want[1])):
+            fail(f"tilelet {wire}: graph-launched kernel != plain")
+        return ms
+
+    def cold(wire, c, t, want):
+        copies = [tilelet_launcher(
+            wire, {k: (v.clone() if torch.is_tensor(v) else v)
+                   for k, v in t.items()}, False)
+            for _ in range(l2_copies(case_bytes(c)))]
+        ms = rotated_graph_ms([g for g, _, _ in copies],
+                              iters=4 * len(copies))
+        for _, oc, og in copies:
+            if not (torch.equal(oc, want[0]) and torch.equal(og, want[1])):
+                fail(f"tilelet {wire}: cold graph-launched kernel != plain")
+        return ms, len(copies)
+
     results = {}
     max_err = {}
+    devs = {}
     for (wire, name), c in cases.items():
-        t = to_dev(c)
+        t = devs[(wire, name)] = to_dev(c)
         for phased in (False, True):
-            counts, grank = run(wire, t, phased)
             pc, pg = plain(wire, t, phased)
-            sync()
-            err = max(float((counts - pc).abs().max()),
-                      float((grank - pg).abs().max()))
-            max_err[wire] = max(max_err.get(wire, 0.0), err)
-            if not (torch.equal(counts, pc) and torch.equal(grank, pg)):
-                fail(f"tilelet {wire} {name} phased={phased}: kernel != "
-                     f"plain (max abs err {err})")
-            log(f"tilelet {wire:6s} {name:6s} phased={phased!s:5s}: "
-                f"bit-identical to plain ({len(c['tile'])} rows, "
-                f"W={c['width']}, {int(counts.sum())} counts)")
-        if name == "chunk":
-            wrapper_ms = cuda_time(lambda: run(wire, t, False))
-            ms = kernel_only_ms(wire, t, plain(wire, t, False))
-            plain_ms = cuda_time(lambda: plain(wire, t, False), iters=5)
-            in_bytes = sum(v.nbytes for v in c.values()
-                           if isinstance(v, np.ndarray))
-            out_bytes = (tlt.C_PAD + tlt.G_PAD) * c["width"] * 4
-            n_rows = int((c["tile"] < c["width"] // tlt.POS_TILE).sum())
-            bytes_ms = (in_bytes + out_bytes) / H100_HBM_BPS * 1e3
-            ops_ms = n_rows * tlt.POS_TILE * 4 / H100_FP32_OPS * 1e3
-            results[wire] = {
-                "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "rows": n_rows, "bytes": in_bytes + out_bytes}
-            log(f"tilelet {wire} at the main path's shape ({n_rows} rows, "
-                f"W={c['width']}): kernel alone {ms:.4f} ms, wrapper "
-                f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{results[wire]['bound_ms']:.4f} ms "
-                f"({in_bytes + out_bytes} B at 3.35 TB/s)")
+            for offsets in ("staged", "offsets", "none"):
+                counts, grank = run(wire, t, phased, offsets)
+                sync()
+                err = max(float((counts - pc).abs().max()),
+                          float((grank - pg).abs().max()))
+                max_err[wire] = max(max_err.get(wire, 0.0), err)
+                if not (torch.equal(counts, pc) and torch.equal(grank, pg)):
+                    fail(f"tilelet {wire} {name} phased={phased} "
+                         f"offsets={offsets}: kernel != plain (max abs err "
+                         f"{err})")
+            log(f"tilelet {wire:6s} {name:8s} phased={phased!s:5s}: "
+                f"bit-identical to plain, staged, with offsets only and "
+                f"without ({len(c['tile'])} rows, deepest tile "
+                f"{c['max_rows']}, W={c['width']}, {int(counts.sum())} "
+                f"counts)")
+
+    for wire in ("v2", "nibble"):
+        c, t = cases[(wire, "chunk")], devs[(wire, "chunk")]
+        r = results[wire] = {}
+        (r["bound_ms"], r["bound_by"]), n_rows = case_bound(c)
+        (r["phased_bound_ms"], _), _ = case_bound(c, phased=True)
+        want = plain(wire, t, False)
+        r["ms"] = alone(wire, t, False, want)
+        r["cold_ms"], n_copies = cold(wire, c, t, want)
+        r["phased_ms"] = alone(wire, t, True, plain(wire, t, True))
+        shapes = {}
+        for name in ("deep", "one_deep"):
+            xc, xt = cases[(wire, name)], devs[(wire, name)]
+            (r[f"{name}_bound_ms"], _), rows = case_bound(xc)
+            r[f"{name}_ms"] = alone(wire, xt, False, plain(wire, xt, False))
+            shapes[name] = (f"{rows} rows, deepest tile {xc['max_rows']}, "
+                            f"W={xc['width']}, {case_bytes(xc)} B")
+        r["wrapper_ms"] = cuda_time(lambda: run(wire, t, False))
+        r["wrapper_nooff_ms"] = cuda_time(
+            lambda: run(wire, t, False, offsets="none"))
+        r["plain_ms"] = cuda_time(lambda: plain(wire, t, False), iters=5)
+        library, check = tilelet_library(wire, t)
+        check(want)
+        r["library_ms"] = cuda_time(library)
+        passes = kernel_breakdown(lambda: run(wire, t, False))
+        log(f"tilelet {wire}, device ms by kernel of one staged wrapper "
+            f"call: {json.dumps(passes)}")
+        if len(passes) != 1:
+            fail(f"tilelet {wire}: a staged wrapper call enqueued "
+                 f"{len(passes)} kernels, not one: {passes}")
+        log(f"tilelet {wire} at the main path's shape ({n_rows} rows, "
+            f"W={c['width']}): kernel alone {r['ms']:.4f} ms warm, "
+            f"{r['cold_ms']:.4f} ms with L2 cold ({n_copies} rotated "
+            f"copies), phased {r['phased_ms']:.4f} ms (bound "
+            f"{r['phased_bound_ms']:.4f} ms); the wrapper "
+            f"{r['wrapper_ms']:.4f} ms with staged offsets, "
+            f"{r['wrapper_nooff_ms']:.4f} ms without; plain "
+            f"{r['plain_ms']:.4f} ms; library (bincount + scatter_reduce "
+            f"amin on keys decoded beforehand, decode left out) "
+            f"{r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+            f"({case_bytes(c)} B at 3.35 TB/s). Deep chunk "
+            f"({shapes['deep']}): alone {r['deep_ms']:.4f} ms, bound "
+            f"{r['deep_bound_ms']:.4f} ms. One deep tile among 50-row "
+            f"tiles ({shapes['one_deep']}): alone {r['one_deep_ms']:.4f} "
+            f"ms, bound {r['one_deep_bound_ms']:.4f} ms")
     for wire in results:
         results[wire]["max_abs_err"] = max_err[wire]
     log(f"kernel phase launches (checks and timing, not the main path): "
@@ -917,7 +1074,7 @@ def main():
         t0 = time.time()
         fasta, bam = make_dataset(work)
         log(f"dataset simulated in {time.time() - t0:.1f} s")
-        kern = kernel_phase(work, fasta, bam)
+        kern = kernel_phase(fasta, bam)
         kern["scatter"] = scatter_phase(fasta, bam)
         kern["counts"] = counts_phase(fasta, bam)
         network_phase(fasta, bam)
@@ -947,7 +1104,11 @@ def main():
             "cold_ms": k.get("cold_ms"),
             "wrapper_ms": k["wrapper_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k.get("library_ms")})
+            "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
+            **{f: k[f] for f in ("deep_ms", "deep_bound_ms", "one_deep_ms",
+                                 "one_deep_bound_ms", "phased_ms",
+                                 "phased_bound_ms", "wrapper_nooff_ms")
+               if f in k}})
     summary = {name: {k: r[k] for k in ("wall_s", "candidates", "rows",
                                          "sites_per_s", "build_s", "infer_s",
                                          "decode_s", "fused", "chunks")}

@@ -80,10 +80,19 @@ def _load(src):
     return lib
 
 
-def _fn(src, name, argtypes):
-    fn = getattr(_load(src), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+_fns = {}
+
+
+def _fn(src, name, argtypes, restype=ctypes.c_int):
+    """The ctypes entry point `name` of `src`'s library, bound once (its
+    argtypes set on first use) and cached: a wrapper call costs one dict
+    lookup, not a lock and a re-bind."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_load(src), name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _fns[name] = fn
     return fn
 
 
@@ -95,21 +104,29 @@ def _ptr(t, align=4):
     return t.data_ptr()
 
 
+_P = ctypes.c_void_p
+_TILELET_ARGS = [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P,
+                 ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                 ctypes.c_int, _P, _P, _P]
+
+
 def launch_tilelet(wire, phased, codes, valid, row_off, rank, strand, hp,
-                   n_tiles, width, counts, grank):
-    """Enqueue csrc/tilelet.cu on the current stream (inputs checked by
-    ops/tilelet._expand). Raises on a refused launch."""
+                   n_tiles, width, counts, grank, max_rows=None):
+    """Enqueue csrc/tilelet.cu (one kernel) on the current stream (inputs
+    checked by ops/tilelet.expand; codes, valid, counts and grank 16-byte
+    aligned, row_off, rank, strand and hp 4-byte aligned; hp may be None).
+    max_rows, the deepest tile's row count where the caller knows it, sets
+    the kernel's cluster size (None: the largest). Raises on a refused
+    launch."""
     import torch
 
-    p = ctypes.c_void_p
-    fn = _fn("tilelet.cu", "tilelet_expand_launch",
-             [ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, ctypes.c_int,
-              ctypes.c_longlong, p, p, p])
+    fn = _fn("tilelet.cu", "tilelet_expand_launch", _TILELET_ARGS)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
-    err = fn(1 if wire == "v2" else 0, 1 if phased else 0, _ptr(codes),
-             _ptr(valid), _ptr(row_off), rank.data_ptr(), strand.data_ptr(),
-             hp.data_ptr(), int(n_tiles), int(width), counts.data_ptr(),
-             grank.data_ptr(), stream)
+    err = fn(1 if wire == "v2" else 0, 1 if phased else 0, _ptr(codes, 16),
+             _ptr(valid, 16), _ptr(row_off), _ptr(rank), _ptr(strand),
+             _ptr(hp), int(codes.shape[0]), int(n_tiles), int(width),
+             -1 if max_rows is None else int(max_rows), _ptr(counts, 16),
+             _ptr(grank, 16), stream)
     if err != 0:
         raise RuntimeError(f"tilelet kernel launch failed: CUDA error {err}")
 
@@ -119,9 +136,9 @@ def _scatter_scratch(k3, n_events, limit, device):
     offsets): uint8, sized by the source's own plan for this launch."""
     import torch
 
-    fn = getattr(_load("scatter.cu"), "scatter_scratch_bytes")
-    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
-    fn.restype = ctypes.c_longlong
+    fn = _fn("scatter.cu", "scatter_scratch_bytes",
+             [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong],
+             ctypes.c_longlong)
     n = fn(int(k3), int(n_events), int(limit))
     if n < 0:
         raise RuntimeError("scatter kernel: no bucketing plan for "
@@ -137,7 +154,7 @@ def launch_fused_scatter(pos, chan, group, rank, width, counts, grank):
     refused launch."""
     import torch
 
-    p = ctypes.c_void_p
+    p = _P
     fn = _fn("scatter.cu", "fused_scatter_launch",
              [p, p, p, p, ctypes.c_longlong, ctypes.c_longlong, p, p, p,
               ctypes.c_longlong, p])
@@ -158,7 +175,7 @@ def launch_pileup_counts(pos, chan, length_pad, out):
     aligned). Raises on a refused launch."""
     import torch
 
-    p = ctypes.c_void_p
+    p = _P
     fn = _fn("scatter.cu", "pileup_counts_launch",
              [p, p, ctypes.c_longlong, ctypes.c_longlong, p, p,
               ctypes.c_longlong, p])

@@ -137,6 +137,8 @@ class StagedPacked:
     tl_rank: np.ndarray       # [R_pad] int32
     tl_strand: np.ndarray     # [R_pad] int8
     tl_hp: np.ndarray         # [R_pad] int8 (phased mode)
+    tl_row_off: np.ndarray    # [n_tiles + 1] int32 first row of each tile
+    tl_max_rows: int          # the deepest tile's rows
     sp_pos: np.ndarray        # [S_pad] int32 sparse star/ins/del events
     sp_chan: np.ndarray       # [S_pad] int8
     sp_group: np.ndarray      # [S_pad] int8 (4 ins, 5 del, 6 star, 7 pad)
@@ -325,13 +327,18 @@ def stage_chunk_packed(packed, ref_codes, cfg: PileupConfig, core_lo,
     tl_valid = None
     if wire == "v2":
         tl_codes, tl_valid = tlt.nibble_to_v2(tl_codes)
+    # the per-tile arenas: tile t owns rows [tl_row_off[t], tl_row_off[t+1])
+    tl_tile = _pad_rows(packed.tl_tile.astype(np.int32), np.int32(n_tiles))
+    tl_row_off = np.searchsorted(
+        tl_tile, np.arange(n_tiles + 1, dtype=np.int32)).astype(np.int32)
     sp_pos, sp_chan, sp_group, sp_rank, sp_weight = _sparse_side(
         packed, width_pad, phased=cfg.phased)
     return StagedPacked(
         width=width_pad, core_lo=core_lo - packed.start,
         core_hi=core_hi - packed.start, start=packed.start,
         tl_codes=tl_codes, tl_valid=tl_valid,
-        tl_tile=_pad_rows(packed.tl_tile.astype(np.int32), np.int32(n_tiles)),
+        tl_tile=tl_tile, tl_row_off=tl_row_off,
+        tl_max_rows=int(np.diff(tl_row_off).max(initial=0)),
         tl_rank=_pad_rows(packed.tl_rank.astype(np.int32),
                           np.int32(tlt.MAX_RANK)),
         tl_strand=_pad_rows(packed.tl_strand.astype(np.int8), np.int8(0)),
@@ -344,14 +351,14 @@ def stage_chunk_packed(packed, ref_codes, cfg: PileupConfig, core_lo,
 
 def staged_tensors(st: StagedPacked, device):
     """{array field: tensor on device} for the fused function (tl_valid is
-    None on the nibble wire)."""
+    None on the nibble wire), plus tl_max_rows where the staging has it."""
     out = {}
     for f in dataclasses.fields(st):
         a = getattr(st, f.name)
         if isinstance(a, np.ndarray):
             out[f.name] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        elif a is None:
-            out[f.name] = None
+        elif a is None or f.name == "tl_max_rows":
+            out[f.name] = a
     return out
 
 
@@ -402,22 +409,15 @@ def make_fused_fn(params, cfg: PileupConfig, *, max_candidates=1024,
     splice = bool(cfg.enable_splice_padding)
     head_tail = bool(cfg.enable_head_tail)
     SKIP_THR = float(config.SKIP_PROPORTION_THRESHOLD)
-    expand = tlt.tilelet_expand_v2 if wire == "v2" else tlt.tilelet_expand
-
     def _counts_packed(t):
         """Steps 1+2: base channels + base group ranks from the tilelet
         kernel, then the sparse star/ins/del side channel."""
         W = t["ref_code"].shape[0]
         dev = t["ref_code"].device
-        if wire == "v2":
-            counts_f, ranks_f = expand(t["tl_codes"], t["tl_valid"],
-                                       t["tl_tile"], t["tl_rank"],
-                                       t["tl_strand"], W, tl_hp=t["tl_hp"],
-                                       phased=phased)
-        else:
-            counts_f, ranks_f = expand(t["tl_codes"], t["tl_tile"],
-                                       t["tl_rank"], t["tl_strand"], W,
-                                       tl_hp=t["tl_hp"], phased=phased)
+        counts_f, ranks_f = tlt.expand(
+            wire, t["tl_codes"], t["tl_valid"], t["tl_tile"], t["tl_rank"],
+            t["tl_strand"], W, tl_hp=t["tl_hp"], phased=phased,
+            tl_row_off=t["tl_row_off"], max_rows=t["tl_max_rows"])
         counts = counts_f[:n_ch].T.to(torch.int32)             # [W, n_ch]
         grank6 = ranks_f[:6].T.to(torch.int32)
         pos_c = t["sp_pos"].to(torch.int64).clamp(max=W - 1)

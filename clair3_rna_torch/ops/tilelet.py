@@ -18,9 +18,16 @@ hp=1 at 18..21 and hp=2 at 24..27; every other channel is 0 and groups
 - nibble: two 4-bit codes per byte [R, POS_TILE/2] (even slot in the high
   nibble), EMPTY=15 for "no base here": 128 B/row.
 
-`tilelet_expand_v2` / `tilelet_expand` launch the hand-written CUDA kernel
-(csrc/tilelet.cu) for CUDA tensors and run `tilelet_expand_plain` for CPU
-tensors; `tilelet_oracle` is the numpy scalar-loop reference.
+Rows are tile-sorted (the extractor emits per-tile arenas; pad rows carry
+tile W/POS_TILE and lie past the last tile). `tilelet_expand_v2` /
+`tilelet_expand` launch the hand-written CUDA kernel (csrc/tilelet.cu) for
+CUDA tensors and run `tilelet_expand_plain` for CPU tensors; given
+`tl_row_off` (int32 [W/POS_TILE + 1], each tile's first row, as the fused
+staging ships it) a call enqueues exactly one kernel, without it the
+wrapper finds the offsets with one searchsorted. The fused route calls
+their common body, `expand`, with the deepest tile's row count as well,
+which sets the kernel's cluster size. `tilelet_oracle` is the numpy
+scalar-loop reference.
 """
 
 import numpy as np
@@ -123,7 +130,7 @@ def tilelet_expand_plain(tl_codes, tl_valid, tl_tile, tl_rank, tl_strand,
     counts = torch.zeros(width_pad * C_PAD, dtype=torch.int64, device=dev)
     counts.scatter_add_(0, (pos_c * C_PAD + chan).reshape(-1),
                         valid.to(torch.int64).reshape(-1))
-    if phased:
+    if phased and tl_hp is not None:
         hp = tl_hp.to(torch.int64)[:, None]
         valid_hp = valid & ((hp == 1) | (hp == 2))
         chan_hp = torch.where(valid_hp, codes + 12 + 6 * hp, C_PAD - 1)
@@ -146,23 +153,35 @@ def tilelet_expand_plain(tl_codes, tl_valid, tl_tile, tl_rank, tl_strand,
 
 # --- kernel wrappers ---------------------------------------------------------
 
-def _expand(kernel_name, wire, tl_codes, tl_valid, tl_tile, tl_rank,
-            tl_strand, tl_hp, width_pad, phased):
+def expand(wire, tl_codes, tl_valid, tl_tile, tl_rank, tl_strand, width_pad,
+           tl_hp=None, phased=False, tl_row_off=None, max_rows=None):
+    """The body of tilelet_expand_v2 (wire "v2") and tilelet_expand
+    ("nibble", tl_valid None), with one more input for callers that have
+    it: max_rows, the deepest tile's row count (the fused staging's
+    tl_max_rows), which sets the kernel's cluster size; without it the
+    kernel takes the largest, which suits any depth. A count below the
+    true one costs time, not exactness."""
+    kernel_name = "tilelet_expand_v2" if wire == "v2" else "tilelet_expand"
     r = tl_codes.shape[0]
     row_bytes = V2_HALF if wire == "v2" else HALF
     if width_pad % POS_TILE:
         raise ValueError(f"width_pad {width_pad} is not a multiple of "
                          f"{POS_TILE}")
-    if tl_hp is None:
-        tl_hp = torch.zeros(r, dtype=torch.int8, device=tl_codes.device)
+    n_tiles = width_pad // POS_TILE
     kernel_io.check("tl_codes", tl_codes, torch.uint8, (r, row_bytes))
     if wire == "v2":
         kernel_io.check("tl_valid", tl_valid, torch.uint8, (r, V2_VBYTES))
     kernel_io.check("tl_tile", tl_tile, torch.int32, (r,))
     kernel_io.check("tl_rank", tl_rank, torch.int32, (r,))
     kernel_io.check("tl_strand", tl_strand, torch.int8, (r,))
-    kernel_io.check("tl_hp", tl_hp, torch.int8, (r,))
-    tensors = [tl_codes, tl_tile, tl_rank, tl_strand, tl_hp]
+    tensors = [tl_codes, tl_tile, tl_rank, tl_strand]
+    if tl_hp is not None:
+        kernel_io.check("tl_hp", tl_hp, torch.int8, (r,))
+        tensors.append(tl_hp)
+    if tl_row_off is not None:
+        kernel_io.check("tl_row_off", tl_row_off, torch.int32,
+                        (n_tiles + 1,))
+        tensors.append(tl_row_off)
     if wire == "v2":
         tensors.append(tl_valid)
     dev = kernel_io.one_device("tilelet", tensors)
@@ -173,41 +192,50 @@ def _expand(kernel_name, wire, tl_codes, tl_valid, tl_tile, tl_rank,
 
     from clair3_rna_torch.csrc import launch_tilelet
 
-    n_tiles = width_pad // POS_TILE
-    # rows are tile-sorted (the extractor emits per-tile arenas); tile t
-    # owns rows [row_off[t], row_off[t+1]) and pad rows (tile == n_tiles)
-    # fall past row_off[n_tiles]
-    row_off = torch.searchsorted(
-        tl_tile, torch.arange(n_tiles + 1, dtype=torch.int32, device=dev),
-        out_int32=True)
+    if tl_row_off is None:
+        # rows are tile-sorted (the extractor emits per-tile arenas); tile t
+        # owns rows [row_off[t], row_off[t+1]) and pad rows (tile ==
+        # n_tiles) fall past row_off[n_tiles]
+        tl_row_off = torch.searchsorted(
+            tl_tile, torch.arange(n_tiles + 1, dtype=torch.int32,
+                                  device=dev), out_int32=True)
     counts = torch.empty((C_PAD, width_pad), dtype=torch.float32,
                          device=dev)
     grank = torch.empty((G_PAD, width_pad), dtype=torch.float32, device=dev)
-    launch_tilelet(wire, phased, tl_codes, tl_valid, row_off, tl_rank,
-                   tl_strand, tl_hp, n_tiles, width_pad, counts, grank)
+    # the unphased kernel never reads hp; a missing hp reads as all 0
+    launch_tilelet(wire, phased, tl_codes, tl_valid, tl_row_off, tl_rank,
+                   tl_strand, tl_hp if phased else None, n_tiles, width_pad,
+                   counts, grank, max_rows=max_rows)
     _count_launch(kernel_name)
     return counts, grank
 
 
 def tilelet_expand_v2(tl_codes2, tl_valid, tl_tile, tl_rank, tl_strand,
-                      width_pad, tl_hp=None, phased=False):
+                      width_pad, tl_hp=None, phased=False, tl_row_off=None):
     """v2 wire -> (counts [C_PAD, W] f32, grank [G_PAD, W] f32).
 
     tl_codes2 uint8 [R, 64], tl_valid uint8 [R, 32], tl_tile int32 [R]
-    (nondecreasing; pad rows carry tile width_pad/POS_TILE), tl_rank int32
-    [R] (< MAX_RANK), tl_strand/tl_hp int8 [R]. CUDA tensors launch the
-    kernel (replacing ops/tilelet.py _make_kernel_v2 of the JAX package);
-    CPU tensors run tilelet_expand_plain."""
-    return _expand("tilelet_expand_v2", "v2", tl_codes2, tl_valid, tl_tile,
-                   tl_rank, tl_strand, tl_hp, width_pad, phased)
+    (nondecreasing: rows are tile-sorted; pad rows carry tile
+    width_pad/POS_TILE), tl_rank int32 [R] (< MAX_RANK, any order within a
+    tile), tl_strand/tl_hp int8 [R] (tl_hp None reads as all 0).
+    tl_row_off, optional int32 [width_pad/POS_TILE + 1], is the first row of
+    each tile (np.searchsorted(tl_tile, arange(n_tiles + 1))); the staging
+    ships it, and a call that has it enqueues exactly one kernel. CUDA
+    tensors launch the kernel (replacing ops/tilelet.py _make_kernel_v2 of
+    the JAX package); CPU tensors run tilelet_expand_plain."""
+    return expand("v2", tl_codes2, tl_valid, tl_tile, tl_rank, tl_strand,
+                  width_pad, tl_hp=tl_hp, phased=phased,
+                  tl_row_off=tl_row_off)
 
 
 def tilelet_expand(tl_codes, tl_tile, tl_rank, tl_strand, width_pad,
-                   tl_hp=None, phased=False):
+                   tl_hp=None, phased=False, tl_row_off=None):
     """Nibble wire (uint8 [R, 128], EMPTY=15) -> the same outputs as
-    tilelet_expand_v2 (replacing the JAX package's _make_kernel)."""
-    return _expand("tilelet_expand", "nibble", tl_codes, None, tl_tile,
-                   tl_rank, tl_strand, tl_hp, width_pad, phased)
+    tilelet_expand_v2, with the same contract (replacing the JAX package's
+    _make_kernel)."""
+    return expand("nibble", tl_codes, None, tl_tile, tl_rank, tl_strand,
+                  width_pad, tl_hp=tl_hp, phased=phased,
+                  tl_row_off=tl_row_off)
 
 
 def tilelet_oracle(tl_codes, tl_tile, tl_rank, tl_strand, width,

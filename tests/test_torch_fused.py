@@ -259,3 +259,24 @@ def test_events_mode_not_ported(monkeypatch):
     monkeypatch.setenv("CLAIR3_RNA_TORCH_FUSED_MODE", "flat")
     with pytest.raises(ValueError, match="FUSED_MODE"):
         tfp.resolve_mode()
+
+
+@pytest.mark.parametrize("wire", ["v2", "nibble"])
+def test_staged_row_offsets(dataset, wire):
+    """stage_chunk_packed ships each tile's first row (the per-tile arenas'
+    offsets, which the tilelet kernel takes instead of searching for them)
+    and the deepest tile's rows (which set its cluster size), on the whole
+    contig and on a chunk of the deep island."""
+    from clair3_rna_torch.config import PileupConfig as TCfg
+    from clair3_rna_torch.ops import tilelet as ttl
+
+    for lo, hi in ((0, CONTIG), (18_000, 24_000)):
+        _, tdata, codes = _chunk(dataset, TCfg(), lo, hi)
+        st = tfp.stage_chunk_packed(tdata, codes, TCfg(), lo, hi, wire=wire)
+        n_tiles = st.width // ttl.POS_TILE
+        want = np.searchsorted(st.tl_tile, np.arange(n_tiles + 1))
+        assert st.tl_row_off.dtype == np.int32
+        np.testing.assert_array_equal(st.tl_row_off, want)
+        assert st.tl_max_rows == np.diff(want).max()
+        # pad rows (tile == n_tiles) lie past the last tile's rows
+        assert st.tl_row_off[-1] == len(tdata.tl_tile) <= len(st.tl_tile)

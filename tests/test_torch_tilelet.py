@@ -209,6 +209,29 @@ def test_wrapper_rejects_bad_inputs():
                            _t(strand), 512)
     with pytest.raises(ValueError):
         ttl.tilelet_expand(_t(packed), _t(tile), _t(rank), _t(strand), 500)
+    row_off = np.searchsorted(tile, np.arange(3)).astype(np.int32)
+    with pytest.raises(TypeError):   # tl_row_off of the wrong dtype
+        ttl.tilelet_expand(_t(packed), _t(tile), _t(rank), _t(strand), 512,
+                           tl_row_off=_t(row_off.astype(np.int64)))
+    with pytest.raises(ValueError):  # ... or length (n_tiles + 1 = 3)
+        ttl.tilelet_expand(_t(packed), _t(tile), _t(rank), _t(strand), 512,
+                           tl_row_off=_t(row_off[:2]))
+    codes2, valid = ttl.nibble_to_v2(packed)
+    with pytest.raises(ValueError):
+        ttl.tilelet_expand_v2(_t(codes2), _t(valid), _t(tile), _t(rank),
+                              _t(strand), 512,
+                              tl_row_off=_t(np.zeros(4, np.int32)))
+    # the right offsets change nothing on the CPU
+    got = ttl.tilelet_expand(_t(packed), _t(tile), _t(rank), _t(strand), 512,
+                             tl_row_off=_t(row_off))
+    want = ttl.tilelet_expand(_t(packed), _t(tile), _t(rank), _t(strand),
+                              512)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # ... nor does the deepest tile's row count the fused route passes
+    got = ttl.expand("nibble", _t(packed), None, _t(tile), _t(rank),
+                     _t(strand), 512, tl_row_off=_t(row_off),
+                     max_rows=int(np.diff(row_off).max()))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda
@@ -244,3 +267,145 @@ def test_kernel_matches_plain_on_card(wire, phased):
                                       width_pad, phased=phased, wire=wire)
     torch.cuda.synchronize()
     assert torch.equal(kc, pc) and torch.equal(kr, pr)
+
+
+STAGE = 128   # rows per staged buffer in csrc/tilelet.cu
+
+
+def _tile_rows(rng, rows_per_tile, n_tiles, rank_order="ascending",
+               fill=0.7, all_invalid=0.0, base_p=None, strand_p=0.5):
+    """Nibble rows with the given row count per tile (tile-sorted), ranks
+    ascending within each tile as the staging emits them, or shuffled with
+    ties, plus 5 pad rows (tile == n_tiles, no valid slot). base_p weighs
+    the four bases, strand_p is the share of reverse rows."""
+    tile = np.repeat(np.arange(len(rows_per_tile), dtype=np.int32),
+                     rows_per_tile)
+    n = len(tile)
+    codes = np.full((n, ttl.POS_TILE), ttl.EMPTY, np.uint8)
+    mask = rng.random((n, ttl.POS_TILE)) < fill
+    codes[mask] = rng.choice(4, int(mask.sum()), p=base_p)
+    codes[rng.random(n) < all_invalid] = ttl.EMPTY
+    if rank_order == "ascending":
+        rank = np.arange(n, dtype=np.int32) * 2
+    else:   # out of rank order within each tile, with many ties
+        rank = rng.integers(0, 50, n).astype(np.int32)
+    packed = ((codes[:, 0::2] << 4) | codes[:, 1::2]).astype(np.uint8)
+    pad = 5
+    return {
+        "packed": np.concatenate([packed, np.full((pad, ttl.HALF), 0xFF,
+                                                  np.uint8)]),
+        "tile": np.concatenate([tile, np.full(pad, n_tiles, np.int32)]),
+        "rank": np.concatenate([rank, np.full(pad, ttl.MAX_RANK,
+                                              np.int32)]),
+        "strand": (rng.random(n + pad) < strand_p).astype(np.int8),
+        "hp": rng.integers(0, 3, n + pad).astype(np.int8),
+        "width": n_tiles * ttl.POS_TILE,
+    }
+
+
+def _deep_tile(rng):
+    """One tile with 72,000 rows beside an empty one, nearly all forward
+    A, so one channel's count passes what a 16-bit lane holds."""
+    return _tile_rows(rng, [72_000], 2, fill=0.99,
+                      base_p=[0.97, 0.01, 0.01, 0.01], strand_p=0.02)
+
+
+def _stage_edges(rng):
+    """Tiles whose row counts straddle the stage size and the 255-row run
+    of one warp (4 warps: 1020/1021 rows), with empty tiles between."""
+    counts = [STAGE - 1, 0, STAGE, STAGE + 1, 0, 2 * STAGE + 1, 1, 4 * 255,
+              4 * 255 + 1, 3]
+    return _tile_rows(rng, counts, len(counts) + 2)
+
+
+def _rank_disorder(rng):
+    """Rows out of rank order within each tile, with rank ties."""
+    return _tile_rows(rng, [300, 40, 0, 700, 5, 129], 6, rank_order="random")
+
+
+def _invalid_and_empty(rng):
+    """All-invalid rows (a fifth), empty tiles and pad rows."""
+    counts = np.zeros(40, np.int64)
+    counts[rng.choice(40, 25, replace=False)] = rng.integers(1, 90, 25)
+    return _tile_rows(rng, counts, 40, all_invalid=0.2)
+
+
+def _wide(rng):
+    """2^20 positions (4,096 tiles, more than one wave of CTAs), sparse."""
+    n_tiles = (1 << 20) // ttl.POS_TILE
+    counts = rng.integers(0, 4, n_tiles)
+    counts[rng.choice(n_tiles, 8, replace=False)] = 150
+    return _tile_rows(rng, counts, n_tiles, fill=0.5)
+
+
+def _one_deep(rng):
+    """50-row tiles with one 5,000-row tile, as one gene at thousands-fold
+    depth among shallow ones."""
+    counts = np.full(64, 50)
+    counts[30] = 5000
+    return _tile_rows(rng, counts, 64)
+
+
+def _mixed_splits(rng):
+    """Tiles deep enough to be split 8, 4 and 2 ways beside unsplit and
+    empty ones, in one group of 8 tiles and the next."""
+    return _tile_rows(rng, [1600, 700, 300, 50, 0, 2000, 193, 1, 400, 60],
+                      12)
+
+
+CUDA_CASES = {"deep_tile_70k": _deep_tile, "stage_edges": _stage_edges,
+              "rank_disorder": _rank_disorder,
+              "invalid_and_empty": _invalid_and_empty, "wide_2e20": _wide,
+              "one_deep": _one_deep, "mixed_splits": _mixed_splits}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phased", [False, True])
+@pytest.mark.parametrize("wire", ["v2", "nibble"])
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
+def test_kernel_cases_on_card(case, wire, phased):
+    """The kernel bit-identical to its plain version on the shapes that
+    stress its schedule, through the wrapper as the fused route calls it
+    (row offsets and the deepest tile's rows, which set the cluster size),
+    with the offsets only and without them; each call counts one
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(sum(map(ord, case)))
+    c = CUDA_CASES[case](rng)
+    dev = torch.device("cuda")
+    n_tiles = c["width"] // ttl.POS_TILE
+    row_off = np.searchsorted(c["tile"], np.arange(n_tiles + 1))
+    if wire == "v2":
+        codes2, valid = ttl.nibble_to_v2(c["packed"])
+        codes, valid = _t(codes2).to(dev), _t(valid).to(dev)
+    else:
+        codes, valid = _t(c["packed"]).to(dev), None
+    tile, rank, strand, hp = (_t(c[k]).to(dev)
+                              for k in ("tile", "rank", "strand", "hp"))
+    off = _t(row_off.astype(np.int32)).to(dev)
+    name = "tilelet_expand_v2" if wire == "v2" else "tilelet_expand"
+    pc, pr = ttl.tilelet_expand_plain(codes, valid, tile, rank, strand, hp,
+                                      c["width"], phased=phased, wire=wire)
+    deepest = int(np.diff(row_off).max())
+    for tl_row_off, max_rows in ((off, deepest), (off, None), (None, None)):
+        before = ttl.launches[name]
+        if max_rows is not None:
+            kc, kr = ttl.expand(wire, codes, valid, tile, rank, strand,
+                                c["width"], tl_hp=hp, phased=phased,
+                                tl_row_off=tl_row_off, max_rows=max_rows)
+        elif wire == "v2":
+            kc, kr = ttl.tilelet_expand_v2(codes, valid, tile, rank, strand,
+                                           c["width"], tl_hp=hp,
+                                           phased=phased,
+                                           tl_row_off=tl_row_off)
+        else:
+            kc, kr = ttl.tilelet_expand(codes, tile, rank, strand,
+                                        c["width"], tl_hp=hp, phased=phased,
+                                        tl_row_off=tl_row_off)
+        torch.cuda.synchronize()
+        assert ttl.launches[name] == before + 1
+        assert torch.equal(kc, pc) and torch.equal(kr, pr), (
+            case, tl_row_off is None, max_rows)
+    if case == "deep_tile_70k":
+        assert int(pc[0, :256].max()) > 65_535
