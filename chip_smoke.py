@@ -48,7 +48,19 @@ Phases (any failed check raises; the exit code is then non-zero):
    (CLAIR3_RNA_TORCH_NO_NATIVE=1, CLAIR3_RNA_TORCH_PILEUP_BACKEND=kernel,
    K4). Every VCF body must equal the host route's, each kernel must
    launch on its own path and on no other. The events wire's host staging
-   and host-to-card copies are logged per chunk.
+   and host-to-card copies are logged per chunk. Then three two-pass runs
+   (--enable_phasing_model --phaser builtin, the committed trained
+   BENCH_WEIGHTS_PHASED.npz for the 30-channel re-call): host route, fused
+   route on the v2 wire and on the nibble wire. Their first passes must
+   equal the host route's body, their output_enable_phasing.vcf bodies
+   must be identical and non-empty, the phaser must tag reads, the fused
+   re-calls must flag renorm candidates on the deep contig with no
+   whole-chunk fallback, and the phased K1 (K2) must launch only in the
+   phased v2 (nibble) run. Phase + haplotag seconds, the re-call's wall,
+   candidates, sites/s and stage seconds are logged per run;
+6. the phased kernel on the main path's own inputs: chunks of the tagged
+   BAM staged as the phased re-call stages them (real hp), K1 and K2
+   bit-identical to the plain version, timed alone.
 
 Prints one {"kernels": [...]} line and, last, the
 {"ok": true, "device": {...}} line. Exits non-zero without CUDA, and when
@@ -212,15 +224,16 @@ def make_dataset(work):
     return fasta, bam
 
 
-def staged_chunk(bam_path, fasta_path, ctg, start, end, wire):
-    """Stage one chunk the way the fused route does."""
+def staged_chunk(bam_path, fasta_path, ctg, start, end, wire, phased=False):
+    """Stage one chunk the way the fused route does (the phased re-call's
+    way with `phased`: hp from the reads' HP tags)."""
     from clair3_rna_torch import config
     from clair3_rna_torch.io.fasta import FastaFile
     from clair3_rna_torch.ops.fused_pileup import stage_chunk_packed
     from clair3_rna_torch.pileup.chunk import open_bam, ref_codes_from
     from clair3_rna_torch.pileup.packed import extract_region_packed
 
-    cfg = config.PileupConfig()
+    cfg = config.PileupConfig(phased=phased)
     fasta = FastaFile(fasta_path)
     bam = open_bam(bam_path)
     lo = max(0, start - config.NO_OF_POSITIONS)
@@ -942,6 +955,19 @@ def chunk_stage_timer(fp):
     return records, restore
 
 
+def tagged_reads(bam_path):
+    """(HP-tagged reads, all reads) of a BAM."""
+    from clair3_rna_torch.io.bam import BamReader
+
+    reader = BamReader(bam_path)
+    n_hp = n_all = 0
+    for ctg in reader.references:
+        for rec in reader.fetch(ctg):
+            n_all += 1
+            n_hp += rec.tags.get("HP", 0) in (1, 2)
+    return n_hp, n_all
+
+
 def e2e_phase(work, fasta, bam):
     from clair3_rna_torch.cli import main as cli_main
     from clair3_rna_torch.models.network import init_params
@@ -953,22 +979,33 @@ def e2e_phase(work, fasta, bam):
 
     weights = save_params(os.path.join(work, "weights.npz"),
                           init_params(SEED, device=DEVICE))
+    phasing = ["--enable_phasing_model", "--phaser", "builtin",
+               "--phased_model_path",
+               os.path.join(HERE, "BENCH_WEIGHTS_PHASED.npz")]
     counters = (tlt, fsc, tpk)
     runs = {}
     # each route once cold (first run in the process), then host and
-    # fused v2 again warm, then the two paths of K3 and K4
-    for name, backend, env in (
-            ("host", "host", {}),
-            ("fused_v2", "fused", {"CLAIR3_RNA_TORCH_TILELET_WIRE": "v2"}),
+    # fused v2 again warm, then the two paths of K3 and K4, then the
+    # two-pass phased runs on the host route and on both fused wires
+    for name, backend, env, phased in (
+            ("host", "host", {}, False),
+            ("fused_v2", "fused", {"CLAIR3_RNA_TORCH_TILELET_WIRE": "v2"},
+             False),
             ("fused_nibble", "fused",
-             {"CLAIR3_RNA_TORCH_TILELET_WIRE": "nibble"}),
-            ("host_warm", "host", {}),
+             {"CLAIR3_RNA_TORCH_TILELET_WIRE": "nibble"}, False),
+            ("host_warm", "host", {}, False),
             ("fused_v2_warm", "fused",
-             {"CLAIR3_RNA_TORCH_TILELET_WIRE": "v2"}),
-            ("fused_events", "fused", {"CLAIR3_RNA_TORCH_FUSED_MODE": "events"}),
+             {"CLAIR3_RNA_TORCH_TILELET_WIRE": "v2"}, False),
+            ("fused_events", "fused",
+             {"CLAIR3_RNA_TORCH_FUSED_MODE": "events"}, False),
             ("host_pure_kernel", "host",
              {"CLAIR3_RNA_TORCH_NO_NATIVE": "1",
-              "CLAIR3_RNA_TORCH_PILEUP_BACKEND": "kernel"})):
+              "CLAIR3_RNA_TORCH_PILEUP_BACKEND": "kernel"}, False),
+            ("host_phased", "host", {}, True),
+            ("fused_phased_v2", "fused",
+             {"CLAIR3_RNA_TORCH_TILELET_WIRE": "v2"}, True),
+            ("fused_phased_nibble", "fused",
+             {"CLAIR3_RNA_TORCH_TILELET_WIRE": "nibble"}, True)):
         out = os.path.join(work, f"out_{name}")
         os.environ.update(env)
         sync()
@@ -978,13 +1015,16 @@ def e2e_phase(work, fasta, bam):
                            else ([], lambda: None))
         for mod in counters:
             mod.reset_launches()
+        # the phased runs write a joblog per pass (build seconds a chunk)
+        joblog = os.path.join(work, f"joblog_{name}.tsv")
         t0 = time.time()
         try:
             outputs, stats = cli_main([
                 "call", "-B", bam, "-R", fasta, "-o", out,
                 "--model_path", weights, "--device", DEVICE,
                 "--pileup_backend", backend, "--chunk_size", str(CHUNK),
-                "--no_compress", "--include_all_ctgs"])
+                "--no_compress", "--include_all_ctgs"]
+                + (phasing + ["--joblog", joblog] if phased else []))
             sync()
         finally:
             restore()
@@ -1010,6 +1050,40 @@ def e2e_phase(work, fasta, bam):
             f"sites ({stats.candidates / wall:.1f} sites/s), {len(body)} "
             f"VCF rows, kernel launches {launches}, fused counters "
             f"{stats.fused}")
+        if not phased:
+            continue
+        ph = stats.phased
+        phased_vcf = os.path.join(out, "output_enable_phasing.vcf")
+        if phased_vcf not in outputs or ph is None:
+            fail(f"{name}: no phased second pass ({outputs})")
+        with open(phased_vcf) as f:
+            phased_body = [line for line in f if not line.startswith("#")]
+        tagged_bam = os.path.join(out, "phased_tagged.bam")
+        n_hp, n_reads = tagged_reads(tagged_bam)
+        runs[name]["phased"] = {
+            "phase_s": ph.phase_s, "recall_wall_s": ph.wall_s,
+            "first_pass_wall_s": stats.wall_s,
+            "candidates": ph.candidates, "rows": len(phased_body),
+            "sites_per_s": ph.candidates / ph.wall_s,
+            "build_s": ph.build_s, "infer_s": ph.infer_s,
+            "decode_s": ph.decode_s, "fused": ph.fused,
+            "tagged_reads": n_hp, "reads": n_reads}
+        for key, path in (("first_pass_chunk_s", joblog),
+                          ("recall_chunk_s", joblog + ".phased")):
+            with open(path) as f:
+                runs[name]["phased"][key] = [
+                    float(line.split("\t")[4]) for line in list(f)[1:]]
+        runs[name]["phased_body"] = phased_body
+        runs[name]["tagged_bam"] = tagged_bam
+        log(f"e2e {name} phased pass: first pass {stats.wall_s:.2f} s, "
+            f"phase + haplotag {ph.phase_s:.2f} s ({n_hp}/{n_reads} reads "
+            f"tagged), re-call {ph.wall_s:.2f} s wall, {ph.candidates} "
+            f"candidate sites ({ph.candidates / ph.wall_s:.1f} sites/s), "
+            f"{len(phased_body)} VCF rows, stage seconds build "
+            f"{ph.build_s:.3f} infer {ph.infer_s:.3f} decode "
+            f"{ph.decode_s:.3f}, fused counters {ph.fused}; build seconds "
+            f"a chunk, first pass {runs[name]['phased']['first_pass_chunk_s']}"
+            f", re-call {runs[name]['phased']['recall_chunk_s']}")
     for name in runs:
         if runs[name]["body"] != runs["host"]["body"]:
             diff = [(a, b) for a, b in zip(runs["host"]["body"],
@@ -1019,9 +1093,33 @@ def e2e_phase(work, fasta, bam):
                  f"rows, first differences {diff[:3]}")
     if not runs["host"]["body"]:
         fail("no VCF rows")
-    # each kernel launches on its own paths and on no other
-    own = {"tilelet_expand_v2": ("fused_v2", "fused_v2_warm"),
-           "tilelet_expand": ("fused_nibble",),
+    want = runs["host_phased"]["phased_body"]
+    if not want:
+        fail("host_phased: no phased VCF rows")
+    for name in ("fused_phased_v2", "fused_phased_nibble"):
+        got = runs[name]["phased_body"]
+        if got != want:
+            diff = [(a, b) for a, b in zip(want, got) if a != b]
+            fail(f"{name} phased VCF body differs from host_phased: "
+                 f"{len(got)} vs {len(want)} rows, first differences "
+                 f"{diff[:3]}")
+        ph = runs[name]["phased"]
+        if ph["fused"]["fallback_chunks"] != 0:
+            fail(f"{name}: the phased re-call fell back to the host route "
+                 f"on {ph['fused']['fallback_chunks']} chunks")
+        if ph["fused"]["renorm_candidates"] <= 0:
+            fail(f"{name}: the phased re-call flagged no renorm candidate "
+                 "on the deep contig")
+    for name in ("host_phased", "fused_phased_v2", "fused_phased_nibble"):
+        if runs[name]["phased"]["tagged_reads"] <= 0:
+            fail(f"{name}: the phaser tagged no read")
+    # each kernel launches on its own paths and on no other; the phased
+    # forms of K1/K2 only in the phased re-call of their wire's run
+    own = {"tilelet_expand_v2": ("fused_v2", "fused_v2_warm",
+                                 "fused_phased_v2"),
+           "tilelet_expand": ("fused_nibble", "fused_phased_nibble"),
+           "tilelet_expand_v2_phased": ("fused_phased_v2",),
+           "tilelet_expand_phased": ("fused_phased_nibble",),
            "fused_scatter": ("fused_events",),
            "pileup_counts": ("host_pure_kernel",)}
     for fn, names in own.items():
@@ -1031,12 +1129,74 @@ def e2e_phase(work, fasta, bam):
                 fail(f"{name} launched no {fn} kernel")
             if name not in names and n != 0:
                 fail(f"{name} launched {fn} {n} times: {r['launches']}")
-    for name in ("fused_v2", "fused_nibble", "fused_v2_warm", "fused_events"):
+    for name in ("fused_v2", "fused_nibble", "fused_v2_warm", "fused_events",
+                 "fused_phased_v2", "fused_phased_nibble"):
         if runs[name]["fused"]["renorm_candidates"] <= 0:
             fail(f"{name}: the deep contig flagged no renorm candidate")
     log(f"e2e: {', '.join(runs)} VCF bodies identical "
-        f"({len(runs['host']['body'])} rows)")
+        f"({len(runs['host']['body'])} rows); phased bodies of "
+        f"host_phased, fused_phased_v2, fused_phased_nibble identical "
+        f"({len(want)} rows)")
     return runs
+
+
+def phased_kernel_check(fasta, tagged_bam):
+    """K1/K2 phased on the main path's own inputs: the first chr1 chunk and
+    the deep chr3 chunk of the tagged BAM, staged as the phased re-call
+    stages them (hp from the HP tags), against the plain version through
+    the wrapper as the fused route calls it; the chr1 chunk also timed
+    alone. Returns {wire: {"max_abs_err", "phased_real_ms"}}."""
+    import numpy as np
+    import torch
+
+    from clair3_rna_torch.ops import tilelet as tlt
+
+    dev = torch.device(DEVICE)
+    out = {}
+    for wire in ("v2", "nibble"):
+        r = out[wire] = {"max_abs_err": 0.0}
+        for name, (ctg, lo, hi) in (("chunk", ("chr1", 0, CHUNK)),
+                                    ("deep", ("chr3", 0, 20_000))):
+            st = staged_chunk(tagged_bam, fasta, ctg, lo, hi, wire,
+                              phased=True)
+            t = {k: (torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                     if v is not None else None)
+                 for k, v in (("codes", st.tl_codes), ("valid", st.tl_valid),
+                              ("tile", st.tl_tile), ("rank", st.tl_rank),
+                              ("strand", st.tl_strand), ("hp", st.tl_hp),
+                              ("row_off", st.tl_row_off))}
+            t["width"], t["max_rows"] = st.width, st.tl_max_rows
+            counts, grank = tlt.expand(
+                wire, t["codes"], t["valid"], t["tile"], t["rank"],
+                t["strand"], t["width"], tl_hp=t["hp"], phased=True,
+                tl_row_off=t["row_off"], max_rows=t["max_rows"])
+            pc, pg = tlt.tilelet_expand_plain(
+                t["codes"], t["valid"], t["tile"], t["rank"], t["strand"],
+                t["hp"], t["width"], phased=True, wire=wire)
+            sync()
+            err = max(float((counts - pc).abs().max()),
+                      float((grank - pg).abs().max()))
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if not (torch.equal(counts, pc) and torch.equal(grank, pg)):
+                fail(f"tilelet {wire} phased, tagged {name}: kernel != "
+                     f"plain (max abs err {err})")
+            hp = np.bincount(st.tl_hp[:int(st.tl_row_off[-1])], minlength=3)
+            hp_counts = int(counts[18:30].sum())
+            if hp_counts <= 0:
+                fail(f"tilelet {wire} phased, tagged {name}: no hp count")
+            msg = (f"tilelet {wire:6s} phased, tagged BAM {name:5s}: "
+                   f"bit-identical to plain ({int(st.tl_row_off[-1])} rows, "
+                   f"hp 0/1/2 rows {hp.tolist()}, deepest tile "
+                   f"{st.tl_max_rows}, {hp_counts} hp-plane counts)")
+            if name == "chunk":
+                go, oc, og = tilelet_launcher(wire, t, True)
+                r["phased_real_ms"] = graph_ms(go)
+                if not (torch.equal(oc, pc) and torch.equal(og, pg)):
+                    fail(f"tilelet {wire}: graph-launched phased kernel != "
+                         "plain")
+                msg += f"; alone {r['phased_real_ms']:.4f} ms warm"
+            log(msg)
+    return out
 
 
 def main():
@@ -1079,9 +1239,19 @@ def main():
         kern["counts"] = counts_phase(fasta, bam)
         network_phase(fasta, bam)
         runs = e2e_phase(work, fasta, bam)
+        phased_real = phased_kernel_check(
+            fasta, runs["fused_phased_v2"]["tagged_bam"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    for wire, r in phased_real.items():
+        kern[wire]["max_abs_err"] = max(kern[wire]["max_abs_err"],
+                                        r["max_abs_err"])
+        kern[wire]["phased_real_ms"] = r["phased_real_ms"]
+        kern[wire]["phased_launches"] = runs[
+            {"v2": "fused_phased_v2", "nibble": "fused_phased_nibble"}[wire]
+        ]["launches"][("tilelet_expand_v2" if wire == "v2"
+                       else "tilelet_expand") + "_phased"]
     kernels = []
     for key, name, fn, run, src, line in (
             ("v2", "tilelet_expand_v2 (K1)", "tilelet_expand_v2", "fused_v2",
@@ -1107,11 +1277,13 @@ def main():
             "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
             **{f: k[f] for f in ("deep_ms", "deep_bound_ms", "one_deep_ms",
                                  "one_deep_bound_ms", "phased_ms",
-                                 "phased_bound_ms", "wrapper_nooff_ms")
+                                 "phased_bound_ms", "wrapper_nooff_ms",
+                                 "phased_real_ms", "phased_launches")
                if f in k}})
     summary = {name: {k: r[k] for k in ("wall_s", "candidates", "rows",
                                          "sites_per_s", "build_s", "infer_s",
-                                         "decode_s", "fused", "chunks")}
+                                         "decode_s", "fused", "chunks",
+                                         "phased") if k in r}
                for name, r in runs.items()}
     log("e2e summary " + json.dumps(summary))
     print(f"[chip_smoke] card: {card_line()}")

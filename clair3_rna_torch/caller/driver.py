@@ -1,8 +1,9 @@
 """Top-level calling orchestration (the run_clair3_rna equivalent).
 
-Resolves contigs/regions, loads weights and runs the pileup pass on one
-device (run_clair3_rna:668-878 workflow, without shell process plumbing).
-The phased second pass and sharded calling are not ported yet.
+Resolves contigs/regions, loads weights, runs the pileup pass on one
+device and optionally the phasing pass (phase -> haplotag -> 30-channel
+re-call), then merges outputs (run_clair3_rna:668-878 workflow, without
+shell process plumbing). Sharded calling is not ported yet.
 """
 
 import logging
@@ -109,8 +110,10 @@ def _attach_run_log(output_dir):
 
 
 def run_full_calling(args, cfg, call_cfg: CallConfig):
-    """One unphased calling run on args.device -> (output paths, CallStats)
-    ((paths, None) for --dry_run)."""
+    """One calling run on args.device -> (output paths, CallStats)
+    ((paths, None) for --dry_run). With --enable_phasing_model the second
+    pass's outputs follow the first pass's, and its CallStats is
+    stats.phased."""
     if getattr(args, "threads", None):
         # the native tile builder partitions the position axis across this
         # many threads (clair3_rna_torch/native: tile_thread_count)
@@ -158,10 +161,104 @@ def run_full_calling(args, cfg, call_cfg: CallConfig):
         pileup_backend=backend,
     )
     logger.info("[INFO] pileup calling finished: %s", ", ".join(outputs))
+
+    if getattr(args, "enable_phasing_model", False):
+        phased_outputs, stats.phased = run_phasing_pass(
+            args, cfg, call_cfg, contigs, outputs[0], device)
+        outputs += phased_outputs
     if getattr(args, "remove_intermediate_dir", False):
         import shutil
-        tmp_dir = os.path.join(args.output_dir, "tmp")
-        if os.path.isdir(tmp_dir):
-            shutil.rmtree(tmp_dir)
-            logger.info("[INFO] removed intermediate directory %s", tmp_dir)
+        for sub in ("tmp", "tmp_phased"):
+            tmp_dir = os.path.join(args.output_dir, sub)
+            if os.path.isdir(tmp_dir):
+                shutil.rmtree(tmp_dir)
+                logger.info("[INFO] removed intermediate directory %s",
+                            tmp_dir)
+    return outputs, stats
+
+
+def run_phasing_pass(args, cfg, call_cfg, contigs, first_pass_vcf, device):
+    """Second pass: phase first-pass hets, haplotag reads, re-call with the
+    30-channel phasing model on `device` (run_clair3_rna:729-852) ->
+    (output paths, the re-call's CallStats with phase_s set).
+
+    Resumable at two grains, matching the reference's step 3-6 --skip_steps
+    (run_clair3_rna:855-867): the phase+haplotag step is skipped when its
+    tagged BAM and completion marker (stamped with the first-pass VCF's
+    identity) already exist, and the re-call itself checkpoints per chunk
+    into <output_dir>/tmp_phased exactly like the first pass."""
+    import gzip
+    import hashlib
+    import json
+    import time
+
+    from clair3_rna_torch.phasing.pipeline import phase_and_haplotag
+
+    tagged_bam = os.path.join(args.output_dir, "phased_tagged.bam")
+    marker = tagged_bam + ".done.json"
+    # identity = the first-pass VCF's BODY content (the header carries
+    # ##cmdline, which legitimately differs between a run and its resume;
+    # a resume regenerates byte-identical rows, so the body hash is stable
+    # exactly when re-phasing would be redundant)
+    body = hashlib.sha1()
+    opener = gzip.open if first_pass_vcf.endswith(".gz") else open
+    with opener(first_pass_vcf, "rb") as f:
+        for line in f:
+            if not line.startswith(b"#"):
+                body.update(line)
+    stamp = {
+        "first_pass_vcf": os.path.abspath(first_pass_vcf),
+        "vcf_body_sha1": body.hexdigest(),
+        "phaser": getattr(args, "phaser", "builtin"),
+        "contigs": hashlib.sha1(
+            ",".join(contigs).encode()).hexdigest()[:12],
+    }
+    resume = getattr(args, "resume", False)
+    done = None
+    if resume and os.path.exists(marker) and os.path.exists(tagged_bam):
+        try:
+            with open(marker) as f:
+                done = json.load(f)
+        except (OSError, ValueError):
+            done = None
+    t0 = time.perf_counter()
+    if done == stamp:
+        logger.info("[INFO] resume: phase+haplotag step restored "
+                    "(tagged BAM %s up to date)", tagged_bam)
+    else:
+        phase_and_haplotag(
+            args.bam_fn, args.ref_fn, first_pass_vcf, tagged_bam,
+            phaser=getattr(args, "phaser", "builtin"),
+            whatshap=getattr(args, "whatshap", "whatshap"),
+            longphase=getattr(args, "longphase", "longphase"),
+            platform=getattr(args, "platform", "ont"),
+            contigs=contigs)
+        tmp = marker + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(stamp, f)
+        os.replace(tmp, marker)  # atomic: BAM is complete when marker lands
+    phase_s = time.perf_counter() - t0
+    params, forward = load_model(args.phased_model_path, phased=True,
+                                 device=device)
+    prefix = getattr(args, "output_prefix", None) or "output"
+    output_path = os.path.join(args.output_dir, prefix + "_enable_phasing.vcf")
+    rediportal_path = args.readiportal_source_fn \
+        if args.tag_variant_using_readiportal else None
+    joblog = getattr(args, "joblog", None)
+    outputs, stats = run_calling(
+        tagged_bam, args.ref_fn, output_path,
+        cfg=cfg.with_(phased=True), call_cfg=call_cfg, params=params,
+        forward=forward, contigs=contigs, chunk_size=args.chunk_size,
+        rediportal_path=rediportal_path,
+        output_no_tagging_path=os.path.join(
+            args.output_dir, prefix + "_no_tagging_enable_phasing.vcf"),
+        sample_name=args.sample_name, compress=not args.no_compress,
+        manifest_dir=os.path.join(args.output_dir, "tmp_phased"),
+        resume=resume,
+        joblog=(joblog + ".phased") if joblog else None,
+        pileup_backend=getattr(args, "pileup_backend", None))
+    stats.phase_s = phase_s
+    logger.info("[INFO] phasing-model calling finished: %s (phase+haplotag "
+                "%.3f s, re-call %.3f s)", ", ".join(outputs), phase_s,
+                stats.wall_s)
     return outputs, stats

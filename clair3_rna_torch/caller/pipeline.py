@@ -108,6 +108,11 @@ class CallStats:
     infer_s: float = 0.0
     decode_s: float = 0.0
     fused: dict | None = None  # fused-path telemetry (renorm/hatch/fallback)
+    wall_s: float = 0.0        # run_calling's wall (host clock)
+    # the phased second pass's own stats (caller/driver.run_phasing_pass),
+    # with its phase+haplotag seconds in phase_s; None without that pass
+    phased: "CallStats | None" = None
+    phase_s: float = 0.0
 
 
 class _HostCopy:
@@ -302,6 +307,7 @@ def run_calling(bam_path: str, ref_path: str, output_path: str, *,
     format): the main thread's operators and, on a card, the device
     activity; operators run from the prefetch threads are not recorded.
     """
+    t_run = time.perf_counter()
     cfg = cfg or PileupConfig()
     call_cfg = call_cfg or CallConfig()
     if params is None:
@@ -795,4 +801,5 @@ def run_calling(bam_path: str, ref_path: str, output_path: str, *,
                 stats.fused["hatch_candidates"], stats.fused["hatch_chunks"],
                 stats.fused["overflow_retries"],
                 stats.fused["fallback_chunks"])
+    stats.wall_s = time.perf_counter() - t_run
     return outputs, stats

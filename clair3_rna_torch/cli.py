@@ -1,10 +1,14 @@
 """Command-line interface.
 
 Mirrors the user surface of `run_clair3_rna` (run_clair3_rna:881-1254) for
-an unphased call on one device:
+a call on one device, with the optional phased second pass, and the
+stand-alone phasing tool:
 
   python -m clair3_rna_torch call -B reads.bam -R ref.fa -o outdir \\
       -p ont_dorado_drna004 [--device cuda|cpu] [--pileup_backend host|fused]
+      [--enable_phasing_model --phased_model_path phased.npz]
+  python -m clair3_rna_torch phase_bam --bam_fn reads.bam --ref_fn ref.fa \\
+      --vcf_fn calls.vcf --output_bam_fn tagged.bam
 """
 
 import argparse
@@ -30,6 +34,9 @@ def _add_call_parser(subparsers):
     p.add_argument("--model_path", "--pileup_model_path",
                    dest="model_path", default=None,
                    help=".npz weights or reference TF checkpoint prefix")
+    p.add_argument("--phased_model_path", "--phased_pileup_model_path",
+                   dest="phased_model_path", default=None,
+                   help="weights for the phasing (30-channel) pass")
     p.add_argument("--ctg_name", default=None,
                    help="comma-separated contigs to call (default: all in BAM)")
     p.add_argument("--region", default=None, help="ctg:start-end region to call")
@@ -69,6 +76,17 @@ def _add_call_parser(subparsers):
                         "$CLAIR3_RNA_TORCH_PILEUP_BACKEND or 'host'")
     p.add_argument("--fast_mode", action="store_true")
     p.add_argument("--call_snp_only", action="store_true")
+    p.add_argument("--enable_phasing_model", action="store_true",
+                   help="run the second, haplotagged-read calling pass")
+    p.add_argument("--phaser", choices=["builtin", "whatshap", "longphase"],
+                   default="builtin",
+                   help="phasing engine for the second pass: in-framework "
+                        "pairwise linkage (default) or an installed external "
+                        "phaser (run_clair3_rna:729-801 invocations)")
+    p.add_argument("--whatshap", default="whatshap",
+                   help="whatshap executable path (with --phaser whatshap)")
+    p.add_argument("--longphase", default="longphase",
+                   help="longphase executable path (with --phaser longphase)")
     p.add_argument("--enable_variant_calling_at_sequence_head_and_tail",
                    action="store_true")
     p.add_argument("--enable_padding_in_splice_junction_regions",
@@ -92,7 +110,8 @@ def _add_call_parser(subparsers):
     p.add_argument("--output_prefix", default="output",
                    help="basename for the merged VCF outputs")
     p.add_argument("--remove_intermediate_dir", action="store_true",
-                   help="delete <output_dir>/tmp after a successful run")
+                   help="delete <output_dir>/tmp (and tmp_phased) after a "
+                        "successful run")
     p.add_argument("--resume", action="store_true",
                    help="restore finished contigs and finished chunks of "
                         "partial contigs from a previous run's manifests "
@@ -183,11 +202,16 @@ def main(argv=None):
                         version=f"clair3_rna_torch {__version__}")
     subparsers = parser.add_subparsers(dest="command")
     _add_call_parser(subparsers)
+    from clair3_rna_torch.evaluation.cli_tools import (add_tool_parsers,
+                                                       dispatch_tool)
+    add_tool_parsers(subparsers)
 
     args = parser.parse_args(argv)
     try:
         if args.command == "call":
             return run_call(args)
+        if dispatch_tool(args):
+            return None
     except FileNotFoundError as exc:
         raise SystemExit(
             f"[ERROR] {args.command}: file not found: "

@@ -93,8 +93,11 @@ def quantize_rows(n):
     return -(-n // step) * step
 
 
+# each launch counts under its wire's name; a phased launch also under
+# "<name>_phased", so a run shows which of its launches took the hp planes
 launches, reset_launches, _count_launch = kernel_io.launch_counter(
-    "tilelet_expand_v2", "tilelet_expand")
+    "tilelet_expand_v2", "tilelet_expand", "tilelet_expand_v2_phased",
+    "tilelet_expand_phased")
 
 
 # --- plain PyTorch version ---------------------------------------------------
@@ -207,6 +210,8 @@ def expand(wire, tl_codes, tl_valid, tl_tile, tl_rank, tl_strand, width_pad,
                    tl_strand, tl_hp if phased else None, n_tiles, width_pad,
                    counts, grank, max_rows=max_rows)
     _count_launch(kernel_name)
+    if phased:
+        _count_launch(kernel_name + "_phased")
     return counts, grank
 
 

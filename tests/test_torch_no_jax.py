@@ -5,6 +5,7 @@ entry points never fall back to the CPU unasked."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -45,10 +46,11 @@ def test_no_jax_imports_in_port_sources():
     assert not bad
 
 
-def test_call_runs_with_jax_blocked(tmp_path):
+def _call_with_jax_blocked(tmp_path, extra_args):
     """Blocks jax/flax/optax/clair3_rna_tpu with a meta-path finder, imports
     every module of the port, then runs `python -m clair3_rna_torch call
-    --device cpu` (as runpy in the same process) on a simulated dataset."""
+    --device cpu --pileup_backend fused` plus `extra_args` (as runpy in the
+    same process) on a simulated dataset."""
     script = textwrap.dedent(f"""
         import importlib, pkgutil, runpy, sys
         BLOCKED = {BLOCKED!r}
@@ -71,7 +73,8 @@ def test_call_runs_with_jax_blocked(tmp_path):
                                                 n_variants=20, depth=25)
         sys.argv = ["clair3_rna_torch", "call", "-B", bam, "-R", fasta,
                     "-o", str(d / "out"), "--device", "cpu",
-                    "--pileup_backend", "fused", "--no_compress"]
+                    "--pileup_backend", "fused", "--no_compress",
+                    *{list(extra_args)!r}]
         runpy.run_module("clair3_rna_torch", run_name="__main__")
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     """)
@@ -80,9 +83,30 @@ def test_call_runs_with_jax_blocked(tmp_path):
     proc = subprocess.run([sys.executable, "-c", script], env=env, cwd=REPO,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    vcf = tmp_path / "out" / "output.vcf"
-    rows = [line for line in open(vcf) if not line.startswith("#")]
-    assert rows
+    return proc
+
+
+def _rows(path):
+    return [line for line in open(path) if not line.startswith("#")]
+
+
+def test_call_runs_with_jax_blocked(tmp_path):
+    """`call` on the fused route with the JAX imports blocked."""
+    _call_with_jax_blocked(tmp_path, [])
+    assert _rows(tmp_path / "out" / "output.vcf")
+
+
+def test_phased_call_runs_with_jax_blocked(tmp_path):
+    """The two-pass `call --enable_phasing_model` (phase, haplotag, the
+    30-channel re-call on the fused route) with the JAX imports blocked;
+    the phaser tags reads."""
+    proc = _call_with_jax_blocked(
+        tmp_path, ["--enable_phasing_model", "--phaser", "builtin"])
+    out = tmp_path / "out"
+    assert _rows(out / "output.vcf")
+    assert _rows(out / "output_enable_phasing.vcf")
+    assert (out / "phased_tagged.bam.done.json").exists()
+    assert re.search(r"haplotagged [1-9][0-9]*/[0-9]+ reads", proc.stderr)
 
 
 def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):

@@ -263,6 +263,8 @@ def test_kernel_matches_plain_on_card(wire, phased):
                     phased=phased)
     name = "tilelet_expand_v2" if wire == "v2" else "tilelet_expand"
     assert ttl.launches[name] == before[name] + 1
+    assert (ttl.launches[name + "_phased"]
+            == before[name + "_phased"] + int(phased))
     pc, pr = ttl.tilelet_expand_plain(args[0], args[1], *rest[:3], rest[3],
                                       width_pad, phased=phased, wire=wire)
     torch.cuda.synchronize()
