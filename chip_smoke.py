@@ -46,8 +46,12 @@ Phases (any failed check raises; the exit code is then non-zero):
    the events wire (CLAIR3_RNA_TORCH_FUSED_MODE=events, K3) and the host
    route on the pure-array builder with its counts on the card
    (CLAIR3_RNA_TORCH_NO_NATIVE=1, CLAIR3_RNA_TORCH_PILEUP_BACKEND=kernel,
-   K4). Every VCF body must equal the host route's, each kernel must
-   launch on its own path and on no other. The events wire's host staging
+   K4), and `call --pileup_backend hybrid` (the per-chunk router, with
+   CLAIR3_RNA_TORCH_ROUTE_PROBE_AFTER=1 so that both routes serve chunks:
+   at least one chunk each, K1 launched once per fused pass; its routing
+   counters and the probed host-to-card link are logged). Every VCF body
+   must equal the host route's, each kernel must launch on its own path
+   and on no other. The events wire's host staging
    and host-to-card copies are logged per chunk. Then three two-pass runs
    (--enable_phasing_model --phaser builtin, the committed trained
    BENCH_WEIGHTS_PHASED.npz for the 30-channel re-call): host route, fused
@@ -58,7 +62,16 @@ Phases (any failed check raises; the exit code is then non-zero):
    whole-chunk fallback, and the phased K1 (K2) must launch only in the
    phased v2 (nibble) run. Phase + haplotag seconds, the re-call's wall,
    candidates, sites/s and stage seconds are logged per run;
-6. the phased kernel on the main path's own inputs: chunks of the tagged
+6. the other entry points: `call` under
+   --enable_variant_calling_at_sequence_head_and_tail over chr1:1-100000 in
+   10 kb chunks on the host route and the fused route (identical bodies:
+   the head/tail halo repair); create_tensor_pileup on chr1's first chunk
+   piped into call_variants on the card, and call_var_bam on the card for
+   the same chunk (rows equal to `call`'s there); cal_af_distribution over
+   the host route's sites with the builder's counts from K4
+   (CLAIR3_RNA_TORCH_PILEUP_BACKEND=kernel) and from the host backend
+   (byte-identical outputs, K4 launched under kernel only);
+7. the phased kernel on the main path's own inputs: chunks of the tagged
    BAM staged as the phased re-call stages them (real hp), K1 and K2
    bit-identical to the plain version, timed alone.
 
@@ -996,6 +1009,8 @@ def e2e_phase(work, fasta, bam):
             ("host_warm", "host", {}, False),
             ("fused_v2_warm", "fused",
              {"CLAIR3_RNA_TORCH_TILELET_WIRE": "v2"}, False),
+            ("hybrid", "hybrid", {"CLAIR3_RNA_TORCH_TILELET_WIRE": "v2"},
+             False),
             ("fused_events", "fused",
              {"CLAIR3_RNA_TORCH_FUSED_MODE": "events"}, False),
             ("host_pure_kernel", "host",
@@ -1042,6 +1057,7 @@ def e2e_phase(work, fasta, bam):
                       "rows": len(body), "body": body,
                       "sites_per_s": stats.candidates / wall,
                       "launches": launches, "fused": stats.fused,
+                      "routing": stats.routing,
                       # thread-summed stage seconds (CallStats): build
                       # overlaps across the two prefetch threads
                       "build_s": stats.build_s, "infer_s": stats.infer_s,
@@ -1049,7 +1065,9 @@ def e2e_phase(work, fasta, bam):
         log(f"e2e {name}: {wall:.2f} s wall, {stats.candidates} candidate "
             f"sites ({stats.candidates / wall:.1f} sites/s), {len(body)} "
             f"VCF rows, kernel launches {launches}, fused counters "
-            f"{stats.fused}")
+            f"{stats.fused}"
+            + (f", routing {json.dumps(stats.routing)}" if stats.routing
+               else ""))
         if not phased:
             continue
         ph = stats.phased
@@ -1115,7 +1133,7 @@ def e2e_phase(work, fasta, bam):
             fail(f"{name}: the phaser tagged no read")
     # each kernel launches on its own paths and on no other; the phased
     # forms of K1/K2 only in the phased re-call of their wire's run
-    own = {"tilelet_expand_v2": ("fused_v2", "fused_v2_warm",
+    own = {"tilelet_expand_v2": ("fused_v2", "fused_v2_warm", "hybrid",
                                  "fused_phased_v2"),
            "tilelet_expand": ("fused_nibble", "fused_phased_nibble"),
            "tilelet_expand_v2_phased": ("fused_phased_v2",),
@@ -1133,11 +1151,177 @@ def e2e_phase(work, fasta, bam):
                  "fused_phased_v2", "fused_phased_nibble"):
         if runs[name]["fused"]["renorm_candidates"] <= 0:
             fail(f"{name}: the deep contig flagged no renorm candidate")
+    # hybrid: both routes served chunks, and K1 launched once per pass of
+    # the chunks routed fused (a budget retry or a windows fetch is a pass)
+    r, f = runs["hybrid"]["routing"], runs["hybrid"]["fused"]
+    if r is None or r["fused_chunks"] < 1 or r["host_chunks"] < 1:
+        fail(f"hybrid: both routes must serve chunks, routing {r}")
+    want_k1 = (r["fused_chunks"] + f["overflow_retries"]
+               + f["renorm_window_fetches"])
+    got_k1 = runs["hybrid"]["launches"]["tilelet_expand_v2"]
+    if got_k1 != want_k1:
+        fail(f"hybrid: K1 launched {got_k1} times for {r['fused_chunks']} "
+             f"fused chunks ({f['overflow_retries']} retries, "
+             f"{f['renorm_window_fetches']} windows fetches)")
+    log(f"e2e hybrid: {r['fused_chunks']} chunks fused, {r['host_chunks']} "
+        f"host, {r['fused_failures']} fused failures, probed link "
+        f"{r['link_bps'] / 1e9:.2f} GB/s (pinned host to card), walls per "
+        f"bucket {json.dumps(r['bucket_walls'])}; K1 launches {got_k1}")
     log(f"e2e: {', '.join(runs)} VCF bodies identical "
         f"({len(runs['host']['body'])} rows); phased bodies of "
         f"host_phased, fused_phased_v2, fused_phased_nibble identical "
         f"({len(want)} rows)")
     return runs
+
+
+def blank_filter(rows):
+    """VCF rows with the FILTER column blanked: the merge of `call` marks
+    LowQual, per-chunk outputs do not."""
+    return ["\t".join(r.split("\t")[:6] + ["."] + r.split("\t")[7:])
+            for r in rows]
+
+
+def slice6_phase(work, fasta, bam, runs):
+    """This slice's paths on the card: `call` under head/tail on both
+    routes at 10 kb chunks; create_tensor_pileup piped into call_variants,
+    and call_var_bam, on chr1's first chunk against `call`'s rows; and
+    cal_af_distribution with the builder's counts from K4 and from the host
+    backend. Returns a summary dict."""
+    import contextlib
+    import io
+
+    from clair3_rna_torch.cli import main as cli_main
+    from clair3_rna_torch.ops import pileup_kernel as tpk
+
+    weights = os.path.join(work, "weights.npz")
+    out = {}
+    # head/tail: host and fused v2 over chr1:1-100000 in 10 kb chunks must
+    # give identical rows (the halo repair)
+    bodies = {}
+    for name, backend in (("host", "host"), ("fused_v2", "fused")):
+        d = os.path.join(work, f"head_tail_{name}")
+        t0 = time.time()
+        outputs, stats = cli_main([
+            "call", "-B", bam, "-R", fasta, "-o", d, "--model_path", weights,
+            "--device", DEVICE, "--pileup_backend", backend, "--chunk_size",
+            "10000", "--region", "chr1:1-100000",
+            "--enable_variant_calling_at_sequence_head_and_tail",
+            "--no_compress", "--include_all_ctgs"])
+        sync()
+        wall = time.time() - t0
+        with open(outputs[0]) as f:
+            bodies[name] = [line for line in f if not line.startswith("#")]
+        out[f"head_tail_{name}"] = {"wall_s": wall, "rows": len(bodies[name]),
+                                    "candidates": stats.candidates,
+                                    "fused": stats.fused}
+        log(f"head/tail {name}: {wall:.2f} s wall, {stats.candidates} "
+            f"candidates, {len(bodies[name])} VCF rows over chr1:1-100000 in "
+            f"10 kb chunks, fused counters {stats.fused}")
+    if not bodies["host"] or bodies["host"] != bodies["fused_v2"]:
+        diff = [(a, b) for a, b in zip(bodies["host"], bodies["fused_v2"])
+                if a != b]
+        fail(f"head/tail: host and fused bodies differ ({len(bodies['host'])}"
+             f" vs {len(bodies['fused_v2'])} rows), first {diff[:3]}")
+
+    # interop on chr1's first chunk ([0, CHUNK): --chunk_id 1 of 3): the
+    # per-chunk rows must be `call`'s rows there; off head/tail a chunk also
+    # emits halo rows within 17 bp past its end, which `call` has from the
+    # next chunk
+    host = blank_filter([r.rstrip("\n") for r in runs["host"]["body"]])
+    core = [r for r in host if r.startswith("chr1\t")
+            and int(r.split("\t")[1]) <= CHUNK]
+
+    def check_chunk(name, rows):
+        rows = blank_filter(rows)
+        got = [r for r in rows if int(r.split("\t")[1]) <= CHUNK]
+        halo = [r for r in rows if int(r.split("\t")[1]) > CHUNK]
+        if got != core or not set(halo) <= set(host):
+            fail(f"{name}: chr1 chunk 1 rows differ from call's ({len(got)} "
+                 f"vs {len(core)} core rows, {len(halo)} halo rows)")
+        return len(got), len(halo)
+
+    t0 = time.time()
+    tsv = io.StringIO()
+    with contextlib.redirect_stdout(tsv):
+        cli_main(["create_tensor_pileup", "--bam_fn", bam, "--ref_fn", fasta,
+                  "--ctgName", "chr1", "--chunk_id", "1", "--chunk_num", "3",
+                  "--device", DEVICE])
+    t_tsv = time.time() - t0
+    n_tsv = len(tsv.getvalue().splitlines())
+    cv = os.path.join(work, "call_variants.vcf")
+    stdin = sys.stdin
+    sys.stdin = io.StringIO(tsv.getvalue())
+    try:
+        t0 = time.time()
+        cli_main(["call_variants", "--call_fn", cv, "--chkpnt_fn", weights,
+                  "--device", DEVICE])
+        sync()
+        t_cv = time.time() - t0
+    finally:
+        sys.stdin = stdin
+    with open(cv) as f:
+        n_core, n_halo = check_chunk("create_tensor_pileup | call_variants",
+                                     [line.rstrip("\n") for line in f])
+    out["interop_pipe"] = {"tsv_rows": n_tsv, "core_rows": n_core,
+                           "halo_rows": n_halo, "create_s": t_tsv,
+                           "call_variants_s": t_cv}
+    log(f"interop: create_tensor_pileup chr1 chunk 1 -> {n_tsv} tensor rows "
+        f"in {t_tsv:.2f} s, piped into call_variants on the card -> "
+        f"{n_core} rows equal to call's in the chunk (+{n_halo} halo rows "
+        f"found in call's output) in {t_cv:.2f} s")
+    cvb = os.path.join(work, "call_var_bam.vcf")
+    t0 = time.time()
+    cli_main(["call_var_bam", "--bam_fn", bam, "--ref_fn", fasta,
+              "--chkpnt_fn", weights, "--ctgName", "chr1", "--chunk_id", "1",
+              "--chunk_num", "3", "--call_fn", cvb, "--device", DEVICE])
+    sync()
+    t_cvb = time.time() - t0
+    with open(cvb) as f:
+        n_core, n_halo = check_chunk(
+            "call_var_bam", [line.rstrip("\n") for line in f
+                             if not line.startswith("#")])
+    out["call_var_bam"] = {"core_rows": n_core, "halo_rows": n_halo,
+                           "wall_s": t_cvb}
+    log(f"interop: call_var_bam chr1 chunk 1 on the card -> {n_core} rows "
+        f"equal to call's (+{n_halo} halo rows) in {t_cvb:.2f} s")
+
+    # the toolkit on K4: per-site support of the host route's calls, with
+    # the builder's channel counts from the count kernel and from the host
+    truth = os.path.join(work, "sites.vcf")
+    with open(truth, "w") as f:
+        f.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\t"
+                "FILTER\tINFO\tFORMAT\tSAMPLE\n")
+        f.writelines(runs["host"]["body"])
+    files, k4 = {}, {}
+    for backend in ("host", "kernel"):
+        path = os.path.join(work, f"af_{backend}.txt")
+        os.environ["CLAIR3_RNA_TORCH_PILEUP_BACKEND"] = backend
+        tpk.reset_launches()
+        t0 = time.time()
+        try:
+            cli_main(["cal_af_distribution", "--normal_bam_fn", bam,
+                      "--ref_fn", fasta, "--truth_vcf_fn", truth,
+                      "--output_fn", path, "--device", DEVICE])
+            sync()
+        finally:
+            os.environ.pop("CLAIR3_RNA_TORCH_PILEUP_BACKEND")
+        k4[backend] = tpk.launches["pileup_counts"]
+        with open(path, "rb") as f:
+            files[backend] = f.read()
+        out[f"af_{backend}"] = {"wall_s": time.time() - t0,
+                                "k4_launches": k4[backend],
+                                "rows": files[backend].count(b"\n")}
+    if not files["host"] or files["host"] != files["kernel"]:
+        fail("cal_af_distribution: the K4 output differs from the host "
+             "backend's")
+    if k4["host"] != 0 or k4["kernel"] <= 0:
+        fail(f"cal_af_distribution: K4 launches {k4} (must be > 0 under "
+             "kernel only)")
+    log(f"toolkit: cal_af_distribution over {out['af_host']['rows']} sites, "
+        f"byte-identical with counts from K4 ({k4['kernel']} launches, "
+        f"{out['af_kernel']['wall_s']:.2f} s) and from the host backend (0 "
+        f"launches, {out['af_host']['wall_s']:.2f} s)")
+    return out
 
 
 def phased_kernel_check(fasta, tagged_bam):
@@ -1200,6 +1384,10 @@ def phased_kernel_check(fasta, tagged_bam):
 
 
 def main():
+    # the hybrid run's probe cadence: a bucket with one route measured
+    # tries the other on its next chunk, so both routes serve chunks within
+    # the smoke's six (read when the router's module is first imported)
+    os.environ["CLAIR3_RNA_TORCH_ROUTE_PROBE_AFTER"] = "1"
     import torch
 
     if not torch.cuda.is_available():
@@ -1239,6 +1427,7 @@ def main():
         kern["counts"] = counts_phase(fasta, bam)
         network_phase(fasta, bam)
         runs = e2e_phase(work, fasta, bam)
+        slice6 = slice6_phase(work, fasta, bam, runs)
         phased_real = phased_kernel_check(
             fasta, runs["fused_phased_v2"]["tagged_bam"])
     finally:
@@ -1282,10 +1471,11 @@ def main():
                if f in k}})
     summary = {name: {k: r[k] for k in ("wall_s", "candidates", "rows",
                                          "sites_per_s", "build_s", "infer_s",
-                                         "decode_s", "fused", "chunks",
-                                         "phased") if k in r}
+                                         "decode_s", "fused", "routing",
+                                         "chunks", "phased") if k in r}
                for name, r in runs.items()}
     log("e2e summary " + json.dumps(summary))
+    log("slice 6 summary " + json.dumps(slice6))
     print(f"[chip_smoke] card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -85,13 +85,17 @@ def _resolve_inputs(args):
     logger.info("[INFO] calling %d contig(s): %s", len(contigs),
                 ",".join(contigs[:8]) + ("..." if len(contigs) > 8 else ""))
 
-    known_positions = None
-    if args.vcf_fn:
-        reader = VcfReader(args.vcf_fn)
-        known_positions = {}
-        for (ctg, pos) in reader.variant_dict:
-            known_positions.setdefault(ctg, []).append(pos - 1)
+    known_positions = known_positions_from_vcf(args.vcf_fn) \
+        if args.vcf_fn else None
     return contigs, bed_regions, known_positions
+
+
+def known_positions_from_vcf(vcf_fn):
+    """{contig: [0-based positions]} of a -G/--vcf_fn site list."""
+    known = {}
+    for (ctg, pos) in VcfReader(vcf_fn).variant_dict:
+        known.setdefault(ctg, []).append(pos - 1)
+    return known
 
 
 def _attach_run_log(output_dir):

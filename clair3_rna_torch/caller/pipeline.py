@@ -10,6 +10,7 @@ device -> host decode -> in-memory merge/sort.
 import logging
 import os
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
@@ -24,6 +25,29 @@ from clair3_rna_torch.postprocess.sort_vcf import load_rediportal, sort_rows
 from clair3_rna_torch.task import GT21_LABEL_INDEX
 
 logger = logging.getLogger(__name__)
+
+
+# hybrid route policies cached per BAM: walls learned by one run_calling
+# (repeated runs, the phased second pass on its own tagged BAM) carry to
+# the next instead of relearning the regime; CallStats.routing reports the
+# run's own chunk counts
+_ROUTE_POLICIES: OrderedDict = OrderedDict()
+_ROUTE_POLICIES_MAX = 4
+
+
+def _get_route_policy(bam_path, link_bps, ref_index):
+    from clair3_rna_torch.caller.backend import ChunkRoutePolicy
+
+    key = os.path.realpath(bam_path) if bam_path else None
+    pol = _ROUTE_POLICIES.get(key)
+    if pol is not None:
+        _ROUTE_POLICIES.move_to_end(key)
+        return pol
+    pol = ChunkRoutePolicy(bam_path, link_bps, ref_index)
+    _ROUTE_POLICIES[key] = pol
+    while len(_ROUTE_POLICIES) > _ROUTE_POLICIES_MAX:
+        _ROUTE_POLICIES.popitem(last=False)
+    return pol
 
 
 def _stack_renormed(records, cfg: PileupConfig):
@@ -108,6 +132,7 @@ class CallStats:
     infer_s: float = 0.0
     decode_s: float = 0.0
     fused: dict | None = None  # fused-path telemetry (renorm/hatch/fallback)
+    routing: dict | None = None  # hybrid per-chunk routing telemetry
     wall_s: float = 0.0        # run_calling's wall (host clock)
     # the phased second pass's own stats (caller/driver.run_phasing_pass),
     # with its phase+haplotag seconds in phase_s; None without that pass
@@ -349,18 +374,29 @@ def run_calling(bam_path: str, ref_path: str, output_path: str, *,
     # candidates take the host float64 scale (_renorm_records); isolated
     # splice-trigger candidates rebuild host-side (_hatch_records); only
     # overflow / clustered-trigger chunks fall back wholesale. Selected by
-    # --pileup_backend host|fused (both routes are row-identical). GVCF
-    # runs (which need every covered site's depth host-side) and --debug
-    # stay on the host route.
-    from clair3_rna_torch.caller.backend import resolve_backend
+    # --pileup_backend host|fused|hybrid (both routes are row-identical, so
+    # hybrid's per-chunk mix merges exactly). GVCF runs (which need every
+    # covered site's depth host-side) and --debug stay on the host route.
+    from clair3_rna_torch.caller.backend import (cached_link_bandwidth,
+                                                 resolve_backend)
     backend = resolve_backend(pileup_backend)
     fused_caller = None
-    if backend == "fused" and not call_cfg.gvcf and not call_cfg.debug:
+    route_policy = None
+    if backend in ("fused", "hybrid") and not call_cfg.gvcf \
+            and not call_cfg.debug:
         from clair3_rna_torch.ops.fused_pileup import FusedChunkCaller
         fused_caller = FusedChunkCaller(
             params, cfg, call_cfg,
             known_only=known_vcf_positions is not None,
             with_masks=bed_regions is not None)
+        if backend == "hybrid":
+            route_policy = _get_route_policy(
+                bam_path, cached_link_bandwidth(params.device),
+                getattr(bam, "ref_index", {}))
+            routing0 = route_policy.counters()
+            if not route_policy.usable:
+                logger.info("[INFO] hybrid backend: no BAI index -> all "
+                            "chunks on the host route")
 
     # build prefetch: the host builds chunk i+1 (C++ + numpy, GIL-releasing)
     # while the device runs inference on chunk i -- the in-process analogue of
@@ -373,9 +409,11 @@ def run_calling(bam_path: str, ref_path: str, output_path: str, *,
 
         Data (and window eligibility) span the +-33 halo, but candidates are
         emitted over the chunk core [task.start, task.end) only: cores tile
-        the contig exactly, so fused candidate counts have no boundary
-        double-counting (host-path halo duplicates are identical rows that
-        the merge dedups away)."""
+        the contig exactly, so no candidate is emitted twice. The host route
+        also emits halo candidates whose window lies in its data (identical
+        rows the merge dedups away), except under head/tail, where a halo
+        window is cut at the data edge and the host route emits over the
+        core alone (pileup/chunk.build_chunk_tensors)."""
         from clair3_rna_torch.pileup.chunk import (extract_region_events,
                                                    ref_codes_from)
         from clair3_rna_torch.pileup.packed import extract_region_packed
@@ -390,6 +428,9 @@ def run_calling(bam_path: str, ref_path: str, output_path: str, *,
         if fused_caller.mode == "packed":
             data = extract_region_packed(bam, task.ctg_name, row_lo, row_hi,
                                          cfg)
+            if route_policy is not None:
+                route_policy.observe(task.ctg_name, task.start, task.end,
+                                     data.n_base)
         else:
             data = extract_region_events(bam, task.ctg_name, row_lo, row_hi,
                                          cfg)
@@ -426,16 +467,43 @@ def run_calling(bam_path: str, ref_path: str, output_path: str, *,
 
     def build_one(task):
         t0 = time.time()
-        if fused_caller is not None:
+        tried_fused = False
+        if fused_caller is not None and (
+                route_policy is None
+                or route_policy.route(task.ctg_name, task.start,
+                                      task.end) == "fused"):
+            tried_fused = True
+            one_offs = fused_caller.one_off_count
             fused_out = fused_one(task)
             if fused_out is not None:
+                if route_policy is not None:
+                    # a chunk that paid a one-off (the caller's first pass
+                    # at a budget, a CUDA library build) records no wall
+                    route_policy.observe_wall(
+                        "fused", task.ctg_name, task.start, task.end,
+                        time.time() - t0,
+                        compiled=fused_caller.one_off_count > one_offs)
                 return ("rows",) + fused_out, time.time() - t0
+            if route_policy is not None:
+                route_policy.observe_failure(task.ctg_name, task.start,
+                                             task.end)
         out = build_chunk_tensors(
             bam, fasta, task, cfg,
             known_positions=known_vcf_positions.get(task.ctg_name)
             if known_vcf_positions else None,
             bed_regions=bed_regions, return_features=True,
             device=params.device)
+        if route_policy is not None:
+            # calibrate the byte->base ratio from host-routed chunks too
+            # (depth = ACGT + star entries, a close proxy for aligned bases)
+            route_policy.observe(task.ctg_name, task.start, task.end,
+                                 int(out[1].depth.sum()))
+            if not tried_fused:
+                # a chunk that fell back from fused has a mixed wall: only
+                # pure host chunks record host walls
+                route_policy.observe_wall("host", task.ctg_name,
+                                          task.start, task.end,
+                                          time.time() - t0)
         return ("records", out), time.time() - t0
 
     # two workers keep two chunk builds in flight: the C++ tile builder and
@@ -775,6 +843,11 @@ def run_calling(bam_path: str, ref_path: str, output_path: str, *,
 
     if fused_caller is not None:
         stats.fused = fused_caller.counters()
+    if route_policy is not None:
+        stats.routing = route_policy.counters()
+        for key in ("fused_chunks", "host_chunks", "explore_chunks",
+                    "fused_failures"):
+            stats.routing[key] -= routing0[key]
     if gvcf_enabled:
         gvcf_rows_by_contig = {ctg: gvcf_rows_for(ctg)
                                for ctg in {k[0] for k in gvcf_by_chunk}}
@@ -801,5 +874,13 @@ def run_calling(bam_path: str, ref_path: str, output_path: str, *,
                 stats.fused["hatch_candidates"], stats.fused["hatch_chunks"],
                 stats.fused["overflow_retries"],
                 stats.fused["fallback_chunks"])
+        if stats.routing is not None:
+            logger.info(
+                "hybrid routing: %d chunks fused, %d host, %d fused "
+                "failures (calibrated %.2f bases/compressed-byte, link "
+                "%.3g B/s)",
+                stats.routing["fused_chunks"], stats.routing["host_chunks"],
+                stats.routing["fused_failures"],
+                stats.routing["bases_per_cbyte"], stats.routing["link_bps"])
     stats.wall_s = time.perf_counter() - t_run
     return outputs, stats

@@ -1,12 +1,18 @@
 """Command-line interface.
 
 Mirrors the user surface of `run_clair3_rna` (run_clair3_rna:881-1254) for
-a call on one device, with the optional phased second pass, and the
-stand-alone phasing tool:
+a call on one device, with the optional phased second pass, the
+reference's process-level subcommands (create_tensor_pileup, call_var_bam,
+call_variants, sort_vcf) and the evaluation toolkit:
 
   python -m clair3_rna_torch call -B reads.bam -R ref.fa -o outdir \\
-      -p ont_dorado_drna004 [--device cuda|cpu] [--pileup_backend host|fused]
+      -p ont_dorado_drna004 [--device cuda|cpu]
+      [--pileup_backend host|fused|hybrid]
       [--enable_phasing_model --phased_model_path phased.npz]
+  python -m clair3_rna_torch create_tensor_pileup --bam_fn reads.bam \\
+      --ref_fn ref.fa --ctgName chr1 | \\
+      python -m clair3_rna_torch call_variants --chkpnt_fn w.npz
+  python -m clair3_rna_torch sort_vcf --input_dir dir --output_fn out.vcf
   python -m clair3_rna_torch phase_bam --bam_fn reads.bam --ref_fn ref.fa \\
       --vcf_fn calls.vcf --output_bam_fn tagged.bam
 """
@@ -14,6 +20,7 @@ stand-alone phasing tool:
 import argparse
 import logging
 import os
+import sys
 
 from clair3_rna_torch import __version__, config
 
@@ -65,15 +72,18 @@ def _add_call_parser(subparsers):
                    help="GQ bin width for GVCF non-variant blocks")
     p.add_argument("--bp_resolution", action="store_true",
                    help="emit per-base GVCF records instead of blocks")
-    p.add_argument("--pileup_backend", choices=["auto", "host", "fused"],
+    p.add_argument("--pileup_backend",
+                   choices=["auto", "host", "fused", "hybrid"],
                    default=None,
                    help="pileup formulation: 'host' builds the count image "
                         "on the host C++ tile builder and ships candidate "
                         "windows only; 'fused' stages packed reads on the "
                         "device and runs the whole chunk there (tilelet "
                         "kernel, candidate mask, window gather, network); "
-                        "'auto' = host. Default: "
-                        "$CLAIR3_RNA_TORCH_PILEUP_BACKEND or 'host'")
+                        "'hybrid' routes each chunk to the route with the "
+                        "lower wall measured during the run; 'auto' = "
+                        "host. Default: $CLAIR3_RNA_TORCH_PILEUP_BACKEND or "
+                        "'host'")
     p.add_argument("--fast_mode", action="store_true")
     p.add_argument("--call_snp_only", action="store_true")
     p.add_argument("--enable_phasing_model", action="store_true",
@@ -191,6 +201,341 @@ def run_call(args):
     return run_full_calling(args, cfg, call_cfg)
 
 
+_DEVICE_HELP = ("device for the network (and the pure-array builder's counts "
+                "under CLAIR3_RNA_TORCH_PILEUP_BACKEND=device|kernel); "
+                "without CUDA the run fails unless 'cpu' is given")
+
+
+def _add_interop_parsers(subparsers):
+    t = subparsers.add_parser(
+        "create_tensor_pileup",
+        help="emit reference-format tensor TSV rows for one contig/chunk "
+             "(src/create_tensor_pileup.py process equivalent)")
+    t.add_argument("--bam_fn", required=True)
+    t.add_argument("--ref_fn", required=True)
+    t.add_argument("--tensor_can_fn", default="PIPE",
+                   help="output path, or PIPE for stdout")
+    t.add_argument("--ctgName", "--ctg_name", dest="ctg_name", default=None)
+    t.add_argument("--chunk_id", type=int, default=None, help="1-based")
+    t.add_argument("--chunk_num", type=int, default=None)
+    t.add_argument("--region", default=None, help="ctg:start-end")
+    t.add_argument("--bed_fn", default=None)
+    t.add_argument("--vcf_fn", default=None, help="known-site genotyping list")
+    t.add_argument("--platform", default="ont_dorado_drna004")
+    t.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help=_DEVICE_HELP)
+    t.add_argument("--snp_min_af", type=float, default=config.SNP_MIN_AF)
+    t.add_argument("--indel_min_af", type=float, default=config.INDEL_MIN_AF)
+    t.add_argument("--min_coverage", type=int, default=config.MIN_COVERAGE)
+    t.add_argument("--minMQ", "--min_mq", dest="min_mq", type=int,
+                   default=config.MIN_MQ)
+    t.add_argument("--minBQ", "--min_bq", dest="min_bq", type=int,
+                   default=config.MIN_BQ)
+    t.add_argument("--fast_mode", action="store_true")
+    t.add_argument("--call_snp_only", action="store_true")
+    t.add_argument("--phased", action="store_true",
+                   help="30-channel haplotagged tensors (phasing model pass)")
+    t.add_argument("--enable_variant_calling_at_sequence_head_and_tail",
+                   action="store_true")
+    t.add_argument("--enable_padding_in_splice_junction_regions",
+                   action="store_true")
+
+    b = subparsers.add_parser(
+        "call_var_bam",
+        help="call one contig/chunk BAM region to a per-chunk VCF "
+             "(clair3_rna/call_var_bam.py process equivalent, in-process)")
+    b.add_argument("--bam_fn", required=True)
+    b.add_argument("--ref_fn", required=True)
+    b.add_argument("--chkpnt_fn", "--model_path", dest="model_path",
+                   default=None, help=".npz weights or TF checkpoint prefix")
+    b.add_argument("--call_fn", default="PIPE",
+                   help="per-chunk VCF output path (e.g. pileup_chr1_3.vcf), "
+                        "or PIPE for stdout")
+    b.add_argument("--ctgName", "--ctg_name", dest="ctg_name", default=None)
+    b.add_argument("--ctgStart", dest="ctg_start", type=int, default=None,
+                   help="1-based inclusive region start")
+    b.add_argument("--ctgEnd", dest="ctg_end", type=int, default=None,
+                   help="1-based inclusive region end")
+    b.add_argument("--chunk_id", type=int, default=None, help="1-based")
+    b.add_argument("--chunk_num", type=int, default=None)
+    b.add_argument("--bed_fn", default=None)
+    b.add_argument("--vcf_fn", default=None, help="known-site genotyping list")
+    b.add_argument("--platform", default="ont_dorado_drna004")
+    b.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help=_DEVICE_HELP)
+    b.add_argument("--sampleName", "--sample_name", dest="sample_name",
+                   default="SAMPLE")
+    b.add_argument("--batch_size", type=int, default=2048)
+    b.add_argument("--snp_min_af", type=float, default=config.SNP_MIN_AF)
+    b.add_argument("--indel_min_af", type=float, default=config.INDEL_MIN_AF)
+    b.add_argument("--minCoverage", "--min_coverage", dest="min_coverage",
+                   type=int, default=config.MIN_COVERAGE)
+    b.add_argument("--minMQ", "--min_mq", dest="min_mq", type=int,
+                   default=config.MIN_MQ)
+    b.add_argument("--minBQ", "--min_bq", dest="min_bq", type=int,
+                   default=config.MIN_BQ)
+    b.add_argument("--fast_mode", action="store_true")
+    b.add_argument("--call_snp_only", action="store_true")
+    b.add_argument("--show_ref", "--showRef", dest="show_ref",
+                   action="store_true")
+    b.add_argument("--qual", type=float, default=None)
+    b.add_argument("--enable_long_indel", action="store_true")
+    b.add_argument("--keep_iupac_bases", action="store_true")
+    b.add_argument("--haploid_precise", action="store_true")
+    b.add_argument("--haploid_sensitive", action="store_true")
+    b.add_argument("--phasing_info_in_bam", "--phased", dest="phased",
+                   action="store_true",
+                   help="30-channel phased tensors from an HP-tagged BAM")
+    b.add_argument("--enable_variant_calling_at_sequence_head_and_tail",
+                   action="store_true")
+    b.add_argument("--enable_padding_in_splice_junction_regions",
+                   action="store_true")
+
+    v = subparsers.add_parser(
+        "call_variants",
+        help="tensor TSV in (stdin or file), VCF rows out "
+             "(clair3_rna/call_variants.py process equivalent)")
+    v.add_argument("--tensor_fn", default="PIPE",
+                   help="input tensor TSV path, or PIPE for stdin")
+    v.add_argument("--call_fn", default="PIPE",
+                   help="output VCF rows path, or PIPE for stdout")
+    v.add_argument("--chkpnt_fn", "--model_path", dest="model_path",
+                   default=None, help=".npz weights or TF checkpoint prefix")
+    v.add_argument("--platform", default="ont_dorado_drna004")
+    v.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help=_DEVICE_HELP)
+    v.add_argument("--batch_size", type=int, default=2048)
+    v.add_argument("--show_ref", "--showRef", dest="show_ref",
+                   action="store_true")
+    v.add_argument("--qual", type=float, default=None)
+    v.add_argument("--enable_long_indel", action="store_true")
+    v.add_argument("--keep_iupac_bases", action="store_true")
+    v.add_argument("--haploid_precise", action="store_true")
+    v.add_argument("--haploid_sensitive", action="store_true")
+    v.add_argument("--debug", action="store_true",
+                   help="print raw probability rows instead of VCF rows "
+                        "(clair3_rna/call_variants.py --debug)")
+    v.add_argument("--output_for_ensemble", action="store_true",
+                   help="emit per-candidate probability rows for ensemble "
+                        "calling instead of VCF rows "
+                        "(clair3_rna/call_variants.py --output_for_ensemble)")
+    v.add_argument("--phased", action="store_true",
+                   help="expect 30-channel phased tensors")
+
+
+def _run_create_tensor(args):
+    from clair3_rna_torch.caller.driver import known_positions_from_vcf
+    from clair3_rna_torch.caller.tsv_interop import (open_maybe_stdout,
+                                                     write_tensor_rows)
+    from clair3_rna_torch.config import PileupConfig
+    from clair3_rna_torch.io.bed import BedRegions
+
+    full_platform = config.PLATFORM_ALIASES.get(args.platform, args.platform)
+    cfg = PileupConfig.for_platform(
+        full_platform,
+        min_mq=args.min_mq, min_bq=args.min_bq,
+        min_coverage=args.min_coverage,
+        snp_min_af=args.snp_min_af, indel_min_af=args.indel_min_af,
+        fast_mode=args.fast_mode, call_snp_only=args.call_snp_only,
+        phased=args.phased,
+        enable_head_tail=args.enable_variant_calling_at_sequence_head_and_tail,
+        enable_splice_padding=args.enable_padding_in_splice_junction_regions)
+    region = None
+    bed_regions = None
+    if args.region:
+        ctg, bed = _parse_region(args.region)
+        region = (ctg, (int(bed.starts[ctg][0]), int(bed.ends[ctg][0])))
+    elif args.bed_fn:
+        bed_regions = BedRegions.from_file(args.bed_fn)
+    known_positions = known_positions_from_vcf(args.vcf_fn) \
+        if args.vcf_fn else None
+    out, owns = open_maybe_stdout(args.tensor_can_fn)
+    try:
+        n = write_tensor_rows(args.bam_fn, args.ref_fn, out, cfg=cfg,
+                              ctg_name=args.ctg_name, chunk_id=args.chunk_id,
+                              chunk_num=args.chunk_num, region=region,
+                              bed_regions=bed_regions,
+                              known_positions=known_positions,
+                              device=args.device)
+    finally:
+        if owns:
+            out.close()
+    print(f"[INFO] wrote {n} tensor rows", file=sys.stderr)
+
+
+def _run_call_var_bam(args):
+    """One (contig, chunk) BAM region -> per-chunk VCF, in-process.
+
+    The reference's call_var_bam (clair3_rna/call_var_bam.py:88-333) spawns a
+    pypy tensor builder piped into a python caller; here the same unit of
+    work (one chunk of one contig, addressed by --chunk_id/--chunk_num or
+    --ctgStart/--ctgEnd) runs as one in-process chain on --device, so
+    GNU-parallel style drivers can still fan out per-chunk workers."""
+    from clair3_rna_torch.caller.decode import CallConfig
+    from clair3_rna_torch.caller.driver import (known_positions_from_vcf,
+                                                load_model)
+    from clair3_rna_torch.caller.pipeline import call_tensor_records
+    from clair3_rna_torch.caller.tsv_interop import open_maybe_stdout
+    from clair3_rna_torch.config import PileupConfig
+    from clair3_rna_torch.io.bed import BedRegions
+    from clair3_rna_torch.io.fasta import FastaFile
+    from clair3_rna_torch.io.vcf import vcf_header
+    from clair3_rna_torch.pileup.chunk import (ChunkTask, build_chunk_tensors,
+                                               open_bam, tasks_for_chunk_args)
+
+    full_platform = config.PLATFORM_ALIASES.get(args.platform, args.platform)
+    cfg = PileupConfig.for_platform(
+        full_platform,
+        min_mq=args.min_mq, min_bq=args.min_bq,
+        min_coverage=args.min_coverage,
+        snp_min_af=args.snp_min_af, indel_min_af=args.indel_min_af,
+        fast_mode=args.fast_mode, call_snp_only=args.call_snp_only,
+        phased=args.phased, show_ref=args.show_ref,
+        enable_head_tail=args.enable_variant_calling_at_sequence_head_and_tail,
+        enable_splice_padding=args.enable_padding_in_splice_junction_regions,
+        sample_name=args.sample_name, batch_size=args.batch_size)
+    call_cfg = CallConfig(
+        show_ref=args.show_ref, qual=args.qual,
+        enable_long_indel=args.enable_long_indel,
+        keep_iupac_bases=args.keep_iupac_bases,
+        haploid_precise=args.haploid_precise,
+        haploid_sensitive=args.haploid_sensitive)
+
+    params, forward = load_model(args.model_path, phased=args.phased,
+                                 device=args.device)
+    fasta = FastaFile(args.ref_fn)
+    bam = open_bam(args.bam_fn)
+    if args.ctg_start is not None or args.ctg_end is not None:
+        if not args.ctg_name or args.ctg_start is None or args.ctg_end is None:
+            raise SystemExit("[ERROR] --ctgStart/--ctgEnd need --ctgName and "
+                             "both bounds")
+        tasks = [ChunkTask(args.ctg_name, max(args.ctg_start - 1, 0),
+                           args.ctg_end)]
+    else:
+        tasks = tasks_for_chunk_args(fasta, bam, ctg_name=args.ctg_name,
+                                     chunk_id=args.chunk_id,
+                                     chunk_num=args.chunk_num)
+    bed_regions = BedRegions.from_file(args.bed_fn) if args.bed_fn else None
+    known_positions = known_positions_from_vcf(args.vcf_fn) \
+        if args.vcf_fn else None
+
+    out, owns = open_maybe_stdout(args.call_fn)
+    n_rows = 0
+    try:
+        out.write(vcf_header(args.ref_fn,
+                             sample_name=args.sample_name).rstrip("\n") + "\n")
+        for task in tasks:
+            records = build_chunk_tensors(
+                bam, fasta, task, cfg,
+                known_positions=known_positions.get(task.ctg_name)
+                if known_positions else None,
+                bed_regions=bed_regions, device=params.device)
+            for row in call_tensor_records(records, forward, params, cfg,
+                                           call_cfg):
+                out.write(row + "\n")
+                n_rows += 1
+    finally:
+        if owns:
+            out.close()
+    print(f"[INFO] wrote {n_rows} VCF rows", file=sys.stderr)
+
+
+def _run_call_variants(args):
+    from clair3_rna_torch.caller.decode import CallConfig
+    from clair3_rna_torch.caller.driver import load_model
+    from clair3_rna_torch.caller.tsv_interop import (call_variants_from_tsv,
+                                                     open_maybe_stdout,
+                                                     open_tensor_stream)
+    from clair3_rna_torch.config import PileupConfig
+
+    full_platform = config.PLATFORM_ALIASES.get(args.platform, args.platform)
+    cfg = PileupConfig.for_platform(full_platform, phased=args.phased,
+                                    batch_size=args.batch_size)
+    call_cfg = CallConfig(
+        show_ref=args.show_ref, qual=args.qual,
+        enable_long_indel=args.enable_long_indel,
+        keep_iupac_bases=args.keep_iupac_bases,
+        haploid_precise=args.haploid_precise,
+        haploid_sensitive=args.haploid_sensitive,
+        debug=args.debug)
+    params, forward = load_model(args.model_path, phased=args.phased,
+                                 device=args.device)
+    in_stream, owns_in = open_tensor_stream(args.tensor_fn)
+    out, owns = open_maybe_stdout(args.call_fn)
+    try:
+        n = call_variants_from_tsv(in_stream, out, cfg=cfg, call_cfg=call_cfg,
+                                   params=params, forward=forward,
+                                   ensemble=args.output_for_ensemble)
+    finally:
+        if owns:
+            out.close()
+        if owns_in:
+            in_stream.close()
+    print(f"[INFO] wrote {n} VCF rows", file=sys.stderr)
+
+
+def _add_index_parser(subparsers):
+    p = subparsers.add_parser(
+        "index",
+        help="build a BAI index for a coordinate-sorted BAM "
+             "(samtools-index equivalent; enables bounded-memory region "
+             "access for whole-genome inputs)")
+    p.add_argument("bam_fn", help="coordinate-sorted BAM to index")
+    p.add_argument("-o", "--output_fn", default=None,
+                   help="index output path (default: <bam>.bai)")
+    return p
+
+
+def _run_index(args):
+    from clair3_rna_torch.io.bai import build_index
+
+    out = args.output_fn or args.bam_fn + ".bai"
+    build_index(args.bam_fn, out)
+    print(f"[INFO] wrote {out}")
+
+
+def _add_sort_parser(subparsers):
+    p = subparsers.add_parser("sort_vcf", help="merge/sort per-chunk VCFs")
+    p.add_argument("--input_dir", required=True)
+    p.add_argument("--output_fn", required=True)
+    p.add_argument("--vcf_fn_prefix", default="pileup_")
+    p.add_argument("--ref_fn", default=None)
+    p.add_argument("--contigs_fn", default=None)
+    p.add_argument("--sample_name", default="SAMPLE")
+    p.add_argument("--qual", type=float, default=None)
+    p.add_argument("--show_ref", action="store_true")
+    p.add_argument("--tag_variant_using_readiportal", action="store_true")
+    p.add_argument("--readiportal_source_fn", default=None)
+    p.add_argument("--output_no_tagging_fn", default=None)
+    p.add_argument("--no_compress", action="store_true")
+    return p
+
+
+def run_sort(args):
+    from clair3_rna_torch.postprocess.sort_vcf import (load_rediportal,
+                                                       sort_vcf_files)
+
+    if args.contigs_fn and os.path.exists(args.contigs_fn):
+        contigs = [line.strip() for line in open(args.contigs_fn)
+                   if line.strip()]
+    else:
+        contigs = sorted({fn.split("_")[1] for fn in os.listdir(args.input_dir)
+                          if fn.startswith(args.vcf_fn_prefix)})
+    rediportal = load_rediportal(
+        args.readiportal_source_fn if args.tag_variant_using_readiportal
+        else None, contigs=contigs)
+    outputs, n_rows, n_tagged = sort_vcf_files(
+        args.input_dir, args.output_fn, contigs,
+        vcf_fn_prefix=args.vcf_fn_prefix,
+        show_ref=args.show_ref, qual_cutoff=args.qual,
+        rediportal=rediportal,
+        output_no_tagging_fn=args.output_no_tagging_fn if rediportal else None,
+        reference_file_path=args.ref_fn, sample_name=args.sample_name,
+        compress=not args.no_compress)
+    print(f"[INFO] wrote {n_rows} rows ({n_tagged} RNAEditing-tagged) "
+          f"-> {', '.join(outputs)}")
+
+
 def main(argv=None):
     """Entry point; `call` returns (output paths, CallStats)."""
     logging.basicConfig(format="%(message)s", level=logging.INFO)
@@ -202,6 +547,9 @@ def main(argv=None):
                         version=f"clair3_rna_torch {__version__}")
     subparsers = parser.add_subparsers(dest="command")
     _add_call_parser(subparsers)
+    _add_sort_parser(subparsers)
+    _add_index_parser(subparsers)
+    _add_interop_parsers(subparsers)
     from clair3_rna_torch.evaluation.cli_tools import (add_tool_parsers,
                                                        dispatch_tool)
     add_tool_parsers(subparsers)
@@ -210,6 +558,16 @@ def main(argv=None):
     try:
         if args.command == "call":
             return run_call(args)
+        if args.command == "sort_vcf":
+            return run_sort(args)
+        if args.command == "create_tensor_pileup":
+            return _run_create_tensor(args)
+        if args.command == "call_var_bam":
+            return _run_call_var_bam(args)
+        if args.command == "call_variants":
+            return _run_call_variants(args)
+        if args.command == "index":
+            return _run_index(args)
         if dispatch_tool(args):
             return None
     except FileNotFoundError as exc:

@@ -23,6 +23,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs = {}
+# libraries built or loaded in this process (each a one-off cost that a
+# chunk's wall carries: ops/fused_pileup.FusedChunkCaller.one_off_count)
+_one_offs = 0
+
+
+def one_off_count():
+    return _one_offs
 
 
 def _nvcc():
@@ -46,6 +53,7 @@ def _stale(src):
 def build_all(force=False):
     """Compile every stale kernel source, one nvcc per source, all started
     together. Returns {source: (seconds, ptxas report)}."""
+    global _one_offs
     os.makedirs(_BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -60,6 +68,7 @@ def build_all(force=False):
         procs[src] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     report = {}
+    _one_offs += len(procs)
     for src, (tmp, proc) in procs.items():
         out, err = proc.communicate()
         if proc.returncode != 0:
@@ -70,6 +79,7 @@ def build_all(force=False):
 
 
 def _load(src):
+    global _one_offs
     with _lock:
         lib = _libs.get(src)
         if lib is None:
@@ -77,6 +87,7 @@ def _load(src):
                 build_all()
             lib = ctypes.CDLL(_lib_path(src))
             _libs[src] = lib
+            _one_offs += 1
     return lib
 
 

@@ -1,1 +1,2 @@
-"""Evaluation and stand-alone tools; so far the phasing tool (`phase_bam`)."""
+"""Benchmarking / evaluation toolkit (the reference's src/ offline tools) and
+the stand-alone phasing tool (`phase_bam`)."""

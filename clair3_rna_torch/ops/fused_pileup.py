@@ -713,6 +713,9 @@ class FusedChunkCaller:
         self.known_only = known_only
         self.with_masks = with_masks
         self._lock = threading.Lock()
+        # fused passes run so far, by (kind, budget, fold): the first of
+        # each pays one-off costs (allocator growth, first launches)
+        self._passes = set()
 
     def _count(self, name, delta=1):
         with self._lock:
@@ -731,7 +734,20 @@ class FusedChunkCaller:
         self._count("fallback_chunks")
         return None
 
-    def _get_fused(self, budget, fold=False):
+    @property
+    def one_off_count(self):
+        """One-off costs paid so far: the first fused pass at each budget
+        (and fold, and the windows fetch) plus every CUDA library built or
+        loaded in the process. A chunk whose call grows this count carries
+        a wall the hybrid router must not learn from."""
+        from clair3_rna_torch import csrc
+        with self._lock:
+            n = len(self._passes)
+        return n + csrc.one_off_count()
+
+    def _get_fused(self, budget, fold=False, kind="chunk"):
+        with self._lock:
+            self._passes.add((kind, budget, fold))
         return make_fused_fn(
             self.params, self.cfg, max_candidates=budget,
             known_only=self.known_only, with_masks=self.with_masks,
@@ -948,7 +964,7 @@ class FusedChunkCaller:
             self._count("renorm_window_fetches")
             sel = torch.from_numpy(cand[renorm_idx].astype(np.int64)) \
                 .to(self.device)
-            wins = self._get_fused(self.max_candidates)(
+            wins = self._get_fused(self.max_candidates, kind="windows")(
                 tensors, core, sel=sel).cpu().numpy().astype(np.int32)
         recs = []
         for j, i in enumerate(renorm_idx):

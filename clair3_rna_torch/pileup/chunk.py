@@ -3,8 +3,10 @@
 Replaces the reference's per-chunk `pypy create_tensor_pileup` worker process
 (clair3_rna/call_var_bam.py:205-245): a chunk is the unit of data parallelism;
 rows span the +-33 bp extended region exactly like the mpileup invocation
-(src/create_tensor_pileup.py:411-418), and duplicate boundary candidates are
-deduplicated at the merge stage, as in the reference.
+(src/create_tensor_pileup.py:411-418). Duplicate boundary candidates are
+deduplicated at the merge stage, as in the reference; under head/tail,
+candidates come from the chunk core [start, end) only, as on the fused
+route, since a halo candidate's window is cut at the data edge there.
 """
 
 from dataclasses import dataclass
@@ -191,8 +193,17 @@ def build_chunk_tensors(bam: BamReader, fasta: FastaFile, task: ChunkTask,
             known_positions=np.asarray(known_positions, dtype=np.int64)
             if known_positions is not None else None,
         )
+    # under head/tail, candidates are emitted over the chunk core only: a
+    # halo candidate's window would be cut at this chunk's data edge, and
+    # its row would overwrite the neighbouring chunk's at the merge. Without
+    # head/tail a halo candidate passes the flank checks only when its whole
+    # window lies in this chunk's data, so its row equals the neighbour's
+    # and the merge drops the duplicate (per-chunk outputs keep the
+    # reference's halo rows)
+    core = (task.start, task.end) if cfg.enable_head_tail else (None, None)
     records = builder.build_tensors(
         indels, feat, cfg, task.ctg_name, ref_seq, ref_lo, mask,
+        emit_lo=core[0], emit_hi=core[1],
     )
     if return_features:
         return records, feat, ref_seq, ref_lo
