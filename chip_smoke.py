@@ -73,7 +73,26 @@ Phases (any failed check raises; the exit code is then non-zero):
    (byte-identical outputs, K4 launched under kernel only);
 7. the phased kernel on the main path's own inputs: chunks of the tagged
    BAM staged as the phased re-call stages them (real hp), K1 and K2
-   bit-identical to the plain version, timed alone.
+   bit-identical to the plain version, timed alone;
+8. sharded calling and the mesh: `call --n_shards 2 --shard_id 0|1` as two
+   concurrent processes on the card, on the host route (then
+   `merge_shards`) and on the fused route (the two in a gloo group through
+   parallel/distributed.initialize, rank 0 merging after a barrier); both
+   merged bodies equal the single-process bodies and the fused shards' K1
+   launches sum to their fused passes. Then a mesh of repeated cuda:0:
+   the sharded forward against one card (dp 4 x tp 1 bit-identical,
+   dp 2 x tp 2 within 1e-5, both timed against one card), `call --tp 2`
+   on that mesh (fused route, body equal to one card's, K1 launched) and
+   parallel/dryrun.dryrun_multichip(4). Shard walls, the merge wall and
+   the mesh forward's time are logged;
+9. training: tensor2bin on chr1 against its planted variants and `train`
+   (batch 2,000, lr 1e-3, 3 epochs), for the 18-channel model and for the
+   30-channel model on the tagged BAM of phase 5; the trained loss on the
+   bins must fall below the init's, and `call` (call_var_bam --phased for
+   the 30-channel model) runs with the trained weights; the train step on
+   the card against the CPU (dropout off, 3 steps: loss within 1e-5
+   relative, weights within 1e-5); steps/s and samples/s of the train
+   step at batch 2,000, 18 and 30 channels.
 
 Prints one {"kernels": [...]} line and, last, the
 {"ok": true, "device": {...}} line. Exits non-zero without CUDA, and when
@@ -218,7 +237,8 @@ def tilelet_launcher(wire, t, phased):
 def make_dataset(work):
     """Two contigs at depth 35 (300 kb with a splice region, 200 kb) and a
     20 kb contig at ~325x so renormalization flags fire (1.5 * MAX_DEPTH =
-    216 for the default platform)."""
+    216 for the default platform). Returns (fasta, bam, truth VCF of the
+    variants planted on chr1)."""
     import random
 
     from clair3_rna_torch import simdata
@@ -234,7 +254,9 @@ def make_dataset(work):
     simdata.simulate_bam(bam, genome, variants, rng, depth=35,
                          splice_sites={"chr1": [(150_000, 151_200)]},
                          extra_regions={"chr3": [(0, 20_000, 290)]})
-    return fasta, bam
+    truth = os.path.join(work, "truth_chr1.vcf")
+    write_truth(truth, variants, "chr1")
+    return fasta, bam, truth
 
 
 def staged_chunk(bam_path, fasta_path, ctg, start, end, wire, phased=False):
@@ -1383,6 +1405,421 @@ def phased_kernel_check(fasta, tagged_bam):
     return out
 
 
+SHARD_WORKER = '''
+import json, sys, time
+here, coord, n, pid, call_argv, merge_argv = sys.argv[1:7]
+sys.path.insert(0, here)
+import torch
+from clair3_rna_torch.cli import main
+from clair3_rna_torch.ops import tilelet as tlt
+from clair3_rna_torch.parallel import distributed
+n, pid = int(n), int(pid)
+rank = pid
+if coord != "-":
+    world, rank = distributed.initialize(coordinator_address=coord,
+                                         num_processes=n, process_id=pid)
+    assert (world, rank) == (n, pid), (world, rank)
+tlt.reset_launches()
+t0 = time.time()
+_, stats = main(json.loads(call_argv) + ["--n_shards", str(n),
+                                         "--shard_id", str(rank)])
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+out = {"rank": rank, "wall_s": time.time() - t0,
+       "candidates": stats.candidates, "fused": stats.fused,
+       "launches": dict(tlt.launches)}
+if coord != "-":
+    import torch.distributed as dist
+    dist.barrier()
+    if rank == 0:
+        t0 = time.time()
+        main(json.loads(merge_argv))
+        out["merge_s"] = time.time() - t0
+    dist.destroy_process_group()
+assert not [m for m in sys.modules if m.split(".")[0] in
+            ("jax", "flax", "optax", "clair3_rna_tpu")]
+print("SHARD_RESULT " + json.dumps(out), flush=True)
+'''
+
+
+def shard_pair(work, call_argv, merge_argv, coord):
+    """Two shard processes of `call ... --n_shards 2` run concurrently on
+    the card (through a gloo group on localhost when `coord` is given, rank
+    0 then merging after a barrier). Returns their SHARD_RESULT dicts, rank
+    order, and the pair's wall."""
+    script = os.path.join(work, "shard_worker.py")
+    with open(script, "w") as f:
+        f.write(SHARD_WORKER)
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, script, HERE, coord or "-", "2", str(pid),
+         json.dumps(call_argv), json.dumps(merge_argv)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in range(2)]
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            lines = [ln for ln in out.splitlines()
+                     if ln.startswith("SHARD_RESULT ")]
+            if p.returncode != 0 or not lines:
+                fail(f"shard process failed (rc {p.returncode}):\n"
+                     f"{err[-3000:]}")
+            results.append(json.loads(lines[-1][len("SHARD_RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return sorted(results, key=lambda r: r["rank"]), time.time() - t0
+
+
+def wall_ms(fn, reps=5):
+    """Mean host-clock milliseconds of `fn()` over `reps` calls after one,
+    synchronized."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def body_of(path):
+    with open(path) as f:
+        return [line for line in f if not line.startswith("#")]
+
+
+def parallel_phase(work, fasta, bam, runs):
+    """Sharded calling and the device mesh on the card: `call --n_shards 2`
+    as two concurrent processes on the host route (then `merge_shards`)
+    and on the fused route (the two joined by a gloo group on localhost,
+    rank 0 merging after a barrier), each merged body equal to the
+    single-process body of its route, K1 launches of the fused shards
+    summing to their fused passes; then a mesh of repeated cuda:0: the
+    sharded forward against one card (dp 4 x tp 1 bit-identical, dp 2 x
+    tp 2 within 1e-5), `call --tp 2` on that mesh (fused route, the network
+    through the mesh; body equal to one card's, K1 launched) and
+    dryrun_multichip(4). Returns a summary dict."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from clair3_rna_torch import config
+    from clair3_rna_torch.caller import driver
+    from clair3_rna_torch.caller.pipeline import batch_wire
+    from clair3_rna_torch.cli import main as cli_main
+    from clair3_rna_torch.io.fasta import FastaFile
+    from clair3_rna_torch.models.network import make_wire_forward_fn
+    from clair3_rna_torch.models.params_io import (load_params,
+                                                   params_from_numpy)
+    from clair3_rna_torch.ops import tilelet as tlt
+    from clair3_rna_torch.parallel.dryrun import dryrun_multichip
+    from clair3_rna_torch.parallel.mesh import make_mesh, shard_params
+    from clair3_rna_torch.pileup.chunk import (ChunkTask, build_chunk_tensors,
+                                               open_bam, plan_chunks)
+
+    weights = os.path.join(work, "weights.npz")
+    n_chunks = len(plan_chunks(FastaFile(fasta), chunk_size=CHUNK))
+    out = {}
+    for route, single, gloo in (("host", "host", False),
+                                ("fused", "fused_v2", True)):
+        d = os.path.join(work, f"shards_{route}")
+        merged = os.path.join(work, f"merged_{route}.vcf")
+        call_argv = ["call", "-B", bam, "-R", fasta, "-o", d,
+                     "--model_path", weights, "--device", DEVICE,
+                     "--pileup_backend", route, "--chunk_size", str(CHUNK),
+                     "--no_compress", "--include_all_ctgs"]
+        merge_argv = ["merge_shards", "--work_dir", d, "--n_shards", "2",
+                      "--output_fn", merged, "--ref_fn", fasta,
+                      "--no_compress"]
+        coord = None
+        if gloo:
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            coord = f"127.0.0.1:{s.getsockname()[1]}"
+            s.close()
+        shards, pair_wall = shard_pair(work, call_argv, merge_argv, coord)
+        if gloo:
+            merge_s = shards[0]["merge_s"]
+        else:
+            t0 = time.time()
+            cli_main(merge_argv)
+            merge_s = time.time() - t0
+        body = body_of(merged)
+        if not body or body != runs[single]["body"]:
+            fail(f"{route} shards: merged body differs from the single "
+                 f"process's ({len(body)} vs {len(runs[single]['body'])} "
+                 "rows)")
+        k1 = sum(r["launches"]["tilelet_expand_v2"] for r in shards)
+        passes = (n_chunks + sum(r["fused"]["overflow_retries"]
+                                 + r["fused"]["renorm_window_fetches"]
+                                 for r in shards)) if route == "fused" else 0
+        if k1 != passes:
+            fail(f"{route} shards: K1 launched {k1} times for {passes} "
+                 f"fused passes ({n_chunks} chunks)")
+        out[f"shards_{route}"] = {
+            "shard_wall_s": [r["wall_s"] for r in shards],
+            "pair_wall_s": pair_wall, "merge_s": merge_s,
+            "candidates": [r["candidates"] for r in shards],
+            "k1_launches": k1, "rows": len(body), "gloo": gloo}
+        log(f"shards {route}: 2 concurrent processes"
+            f"{' in a gloo group' if gloo else ''}, shard walls "
+            f"{[round(r['wall_s'], 3) for r in shards]} s (call entry to "
+            f"return), pair {pair_wall:.2f} s with process start, "
+            f"candidates {[r['candidates'] for r in shards]}, merge_shards "
+            f"{merge_s:.3f} s -> {len(body)} rows equal to the single "
+            f"process's {single} body; K1 launches {k1} for {passes} fused "
+            "passes")
+
+    # the mesh on repeated cuda:0: sharded forward against one card
+    cfg = config.PileupConfig()
+    records = build_chunk_tensors(open_bam(bam), FastaFile(fasta),
+                                  ChunkTask("chr1", 0, CHUNK), cfg)
+    # the host route's full 2,048-row batch: the chunk's real windows,
+    # repeated
+    wire, codes = batch_wire(records, cfg)
+    rows = np.resize(np.arange(len(wire)), 2048)
+    wire, codes = wire[rows], codes[rows]
+    _, forward = make_wire_forward_fn()
+    net = params_from_numpy(load_params(weights), device=DEVICE)
+    one = forward(net, wire, codes)
+    card = torch.device(DEVICE, 0)
+
+    mesh_out = {"rows": len(wire), "real_windows": len(records),
+                "one_card_ms": wall_ms(lambda: forward(net, wire, codes))}
+    for dp, tp in ((4, 1), (2, 2)):
+        mesh = make_mesh(devices=[card] * 4, tp=tp)
+        sharded = shard_params(net, mesh)
+        got = forward(sharded, wire, codes)
+        err = float((got - one).abs().max())
+        if tp == 1 and not torch.equal(got, one):
+            fail(f"mesh dp {dp} x tp 1: probabilities differ from one card "
+                 f"(max abs {err})")
+        if not err <= 1e-5:
+            fail(f"mesh dp {dp} x tp {tp}: max abs prob diff {err} > 1e-5")
+        ms = wall_ms(lambda: forward(sharded, wire, codes))
+        mesh_out[f"dp{dp}_tp{tp}"] = {"max_abs_err": err, "ms": ms}
+        log(f"mesh forward dp {dp} x tp {tp} on repeated cuda:0: "
+            f"{len(wire)} rows ({len(records)} real windows repeated), max "
+            f"abs prob diff vs one card "
+            f"{err:.3e}, {ms:.2f} ms a wire call against "
+            f"{mesh_out['one_card_ms']:.2f} ms on one card (host clock, "
+            "synchronized, 5 calls)")
+    # `call --tp 2` with the driver's mesh on repeated cuda:0
+    saved = driver.default_mesh
+    driver.default_mesh = lambda tp=1, device=None: make_mesh(
+        devices=[card] * 4, tp=tp)
+    tlt.reset_launches()
+    d = os.path.join(work, "out_mesh")
+    t0 = time.time()
+    try:
+        outputs, stats = cli_main([
+            "call", "-B", bam, "-R", fasta, "-o", d, "--model_path",
+            weights, "--device", DEVICE, "--pileup_backend", "fused",
+            "--chunk_size", str(CHUNK), "--no_compress", "--include_all_ctgs",
+            "--tp", "2"])
+        sync()
+    finally:
+        driver.default_mesh = saved
+    wall = time.time() - t0
+    k1 = tlt.launches["tilelet_expand_v2"]
+    body = body_of(outputs[0])
+    if body != runs["fused_v2"]["body"]:
+        diff = [(a, b) for a, b in zip(runs["fused_v2"]["body"], body)
+                if a != b]
+        fail(f"call on the dp 2 x tp 2 mesh: body differs from one card's "
+             f"({len(body)} vs {len(runs['fused_v2']['body'])} rows), first "
+             f"{diff[:3]}")
+    if k1 <= 0:
+        fail("call on the mesh launched no K1")
+    mesh_out["call"] = {"wall_s": wall, "candidates": stats.candidates,
+                        "rows": len(body), "k1_launches": k1}
+    log(f"call --tp 2 on a dp 2 x tp 2 mesh of repeated cuda:0 (fused "
+        f"route): {wall:.2f} s wall, {stats.candidates} candidates, "
+        f"{len(body)} rows equal to one card's, K1 launches {k1}")
+    t0 = time.time()
+    dry = dryrun_multichip(4, device=DEVICE)
+    mesh_out["dryrun"] = dict(dry, wall_s=time.time() - t0)
+    log(f"dryrun_multichip(4) on the card: {mesh_out['dryrun']}")
+    out["mesh"] = mesh_out
+    return out
+
+
+def write_truth(path, variants, contig):
+    with open(path, "w") as f:
+        f.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\t"
+                "FILTER\tINFO\tFORMAT\tSAMPLE\n")
+        for v in sorted(variants[contig], key=lambda v: v.pos):
+            gt = "1/1" if v.genotype == (1, 1) else "0/1"
+            f.write(f"{contig}\t{v.pos + 1}\t.\t{v.ref}\t{v.alt}\t60\tPASS\t"
+                    f".\tGT\t{gt}\n")
+
+
+def train_phase(work, fasta, bam, truth, tagged_bam):
+    """Training on the card: tensor2bin on chr1 against its planted
+    variants, `train` at full width (batch 2,000, lr 1e-3, 3 epochs, the
+    calling heads) whose loss on the bins must fall below the init's,
+    `call` with the trained weights (sorted, unique rows; F1 against the
+    planted variants logged); the same for the 30-channel model on the
+    tagged BAM, called by call_var_bam --phased over its chr1; the train
+    step on the card against the CPU from the same weights and batches
+    (dropout off: loss within 1e-5 relative, weights within 1e-5 after 3
+    steps); steps/s at batch 2,000, 18 and 30 channels. Returns a summary
+    dict."""
+    import numpy as np
+    import torch
+
+    from clair3_rna_torch import config
+    from clair3_rna_torch.cli import main as cli_main
+    from clair3_rna_torch.evaluation.compare_vcf import compare_vcf
+    from clair3_rna_torch.models.network import init_params
+    from clair3_rna_torch.models.params_io import (load_params,
+                                                   params_from_numpy,
+                                                   params_to_numpy)
+    from clair3_rna_torch.parallel.mesh import task_loss, train_step_fn
+    from clair3_rna_torch.train.data import load_bins
+    from clair3_rna_torch.train.radam import RAdam
+
+    out = {}
+    for name, bam_in, phased in (("18ch", bam, False),
+                                 ("30ch", tagged_bam, True)):
+        flag = ["--phased"] if phased else []
+        bins = os.path.join(work, f"bins_{name}")
+        t0 = time.time()
+        cli_main(["tensor2bin", "--bam_fn", bam_in, "--ref_fn", fasta,
+                  "--truth_vcf_fn", truth, "--output_dir", bins,
+                  "--ctg_name", "chr1", "--non_variant_keep_fraction", "1.0",
+                  "--device", DEVICE] + flag)
+        t_bins = time.time() - t0
+        X, Y = load_bins(bins)
+        weights = os.path.join(work, f"trained_{name}.npz")
+        t0 = time.time()
+        cli_main(["train", "--bin_dir", bins, "--output_fn", weights,
+                  "--max_epochs", "3", "--no_indel_length", "--device",
+                  DEVICE] + flag)
+        sync()
+        t_train = time.time() - t0
+        trained = params_from_numpy(load_params(weights), device=DEVICE)
+        init = init_params(0, phased=phased, device=DEVICE)
+
+        def loss_on_bins(net):
+            with torch.inference_mode():
+                x = torch.from_numpy(X).to(DEVICE, torch.float32)
+                y = torch.from_numpy(Y[:, :24]).to(DEVICE, torch.float32)
+                return float(task_loss(net(x), y))
+
+        l_init, l_trained = loss_on_bins(init), loss_on_bins(trained)
+        if not np.isfinite(l_trained) or not l_trained < l_init:
+            fail(f"train {name}: loss on the bins {l_trained} not below the "
+                 f"init's {l_init}")
+        t0 = time.time()
+        if phased:  # one 30-channel pass over the tagged BAM's chr1
+            vcf = os.path.join(work, f"call_var_bam_{name}.vcf")
+            cli_main(["call_var_bam", "--bam_fn", bam_in, "--ref_fn", fasta,
+                      "--chkpnt_fn", weights, "--ctgName", "chr1",
+                      "--phased", "--call_fn", vcf, "--device", DEVICE])
+        else:
+            vcf = cli_main([
+                "call", "-B", bam_in, "-R", fasta, "-o",
+                os.path.join(work, f"out_trained_{name}"), "--model_path",
+                weights, "--device", DEVICE, "--pileup_backend", "fused",
+                "--ctg_name", "chr1", "--chunk_size", str(CHUNK),
+                "--no_compress"])[0][0]
+        sync()
+        t_call = time.time() - t0
+        rows = body_of(vcf)
+        positions = [int(r.split("\t")[1]) for r in rows]
+        if positions != sorted(set(positions)):
+            fail(f"call with the trained {name} weights: rows not sorted "
+                 "and unique")
+        f1 = compare_vcf(vcf, truth, ctg_name="chr1",
+                         skip_genotyping=True).overall.f1
+        out[name] = {"samples": len(X), "tensor2bin_s": t_bins,
+                     "train_s": t_train, "loss_init": l_init,
+                     "loss_trained": l_trained, "call_s": t_call,
+                     "call_rows": len(rows), "f1_vs_planted": f1}
+        log(f"train {name}: tensor2bin chr1 -> {len(X)} samples in "
+            f"{t_bins:.2f} s; train (batch 2000, lr 1e-3, 3 epochs) "
+            f"{t_train:.2f} s, loss on the bins {l_init:.4f} (init) -> "
+            f"{l_trained:.4f}; call with the trained weights "
+            f"({os.path.basename(vcf)}) {t_call:.2f} s, {len(rows)} rows, "
+            f"F1 vs the planted variants {f1:.4f}")
+
+    # the train step on the card against the CPU, dropout off
+    tree = params_to_numpy(init_params(SEED, device="cpu"))
+    nets = {d: params_from_numpy(tree, device=d).requires_grad_(True)
+            for d in ("cpu", DEVICE)}
+    opts = {d: RAdam(1e-3) for d in nets}
+    states = {d: opts[d].init(nets[d].parameters()) for d in nets}
+    steps = {d: train_step_fn(opts[d]) for d in nets}
+    rng = np.random.RandomState(SEED)
+    worst_loss = 0.0
+    for _ in range(3):
+        x = rng.randint(-30, 30, (512, 33, 18)).astype(np.int32)
+        y = np.zeros((512, 24), np.float32)
+        y[np.arange(512), rng.randint(0, 21, 512)] = 1
+        y[np.arange(512), 21 + rng.randint(0, 3, 512)] = 1
+        losses = {}
+        for d in nets:
+            nets[d], states[d], loss = steps[d](nets[d], states[d], x, y,
+                                                None)
+            losses[d] = float(loss)
+        rel = abs(losses[DEVICE] - losses["cpu"]) / abs(losses["cpu"])
+        worst_loss = max(worst_loss, rel)
+        if not rel <= 1e-5:
+            fail(f"train step: card loss {losses[DEVICE]} vs CPU "
+                 f"{losses['cpu']} (relative {rel})")
+    wdiff = max(float((a.detach().cpu() - b.detach()).abs().max())
+                for a, b in zip(nets[DEVICE].parameters(),
+                                nets["cpu"].parameters()))
+    if not wdiff <= 1e-5:
+        fail(f"train step: weights after 3 steps differ by {wdiff}")
+    out["card_vs_cpu"] = {"loss_rel": worst_loss, "weights_abs": wdiff}
+    log(f"train step card vs CPU (512 rows, dropout off, 3 steps): loss "
+        f"relative diff {worst_loss:.3e} (<= 1e-5), weights max abs diff "
+        f"{wdiff:.3e} (<= 1e-5)")
+
+    # steps/s at the default batch, with dropout as training runs it
+    for name, channels in (("18ch", 18), ("30ch", 30)):
+        net = init_params(SEED, add_indel_length=True,
+                          phased=channels == 30,
+                          device=DEVICE).requires_grad_(True)
+        opt = RAdam(1e-3)
+        state = opt.init(net.parameters())
+        step = train_step_fn(opt, add_indel_length=True)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        x = torch.from_numpy(rng.randint(-30, 30, (2000, 33, channels))
+                             .astype(np.float32)).to(DEVICE)
+        y = torch.zeros((2000, config.LABEL_SIZE), device=DEVICE)
+        y[:, 0] = y[:, 21] = y[:, 40] = y[:, 73] = 1.0
+        for _ in range(2):
+            net, state, loss = step(net, state, x, y, gen)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        n_steps = 5
+        for _ in range(n_steps):
+            net, state, loss = step(net, state, x, y, gen)
+        sync()
+        dt = (time.perf_counter() - t0) / n_steps
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        # the step's forward alone (dropout on, no graph kept)
+        with torch.no_grad():
+            fwd_ms = wall_ms(lambda: net(x, train=True, generator=gen))
+        out[f"step_{name}"] = {"ms": dt * 1e3, "steps_per_s": 1 / dt,
+                               "samples_per_s": 2000 / dt,
+                               "forward_ms": fwd_ms, "peak_mib": peak}
+        log(f"train step {name}, batch 2000 with dropout: {dt * 1e3:.1f} "
+            f"ms ({1 / dt:.2f} steps/s, {2000 / dt:.0f} samples/s; host "
+            f"clock, synchronized, {n_steps} steps after 2), its forward "
+            f"alone {fwd_ms:.1f} ms, peak {peak:.0f} MiB")
+    return out
+
+
 def main():
     # the hybrid run's probe cadence: a bucket with one route measured
     # tries the other on its next chunk, so both routes serve chunks within
@@ -1420,7 +1857,7 @@ def main():
     os.makedirs(work)
     try:
         t0 = time.time()
-        fasta, bam = make_dataset(work)
+        fasta, bam, truth = make_dataset(work)
         log(f"dataset simulated in {time.time() - t0:.1f} s")
         kern = kernel_phase(fasta, bam)
         kern["scatter"] = scatter_phase(fasta, bam)
@@ -1430,6 +1867,13 @@ def main():
         slice6 = slice6_phase(work, fasta, bam, runs)
         phased_real = phased_kernel_check(
             fasta, runs["fused_phased_v2"]["tagged_bam"])
+        t0 = time.time()
+        parallel = parallel_phase(work, fasta, bam, runs)
+        parallel["wall_s"] = time.time() - t0
+        t0 = time.time()
+        train = train_phase(work, fasta, bam, truth,
+                            runs["fused_phased_v2"]["tagged_bam"])
+        train["wall_s"] = time.time() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1476,6 +1920,8 @@ def main():
                for name, r in runs.items()}
     log("e2e summary " + json.dumps(summary))
     log("slice 6 summary " + json.dumps(slice6))
+    log("parallel summary " + json.dumps(parallel))
+    log("train summary " + json.dumps(train))
     print(f"[chip_smoke] card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

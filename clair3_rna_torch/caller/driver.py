@@ -1,9 +1,11 @@
 """Top-level calling orchestration (the run_clair3_rna equivalent).
 
 Resolves contigs/regions, loads weights, runs the pileup pass on one
-device and optionally the phasing pass (phase -> haplotag -> 30-channel
-re-call), then merges outputs (run_clair3_rna:668-878 workflow, without
-shell process plumbing). Sharded calling is not ported yet.
+device (or a dp x tp mesh of the local cards) and optionally the phasing
+pass (phase -> haplotag -> 30-channel re-call), then merges outputs
+(run_clair3_rna:668-878 workflow, without shell process plumbing). With
+--n_shards/--shard_id a process calls its share of the chunks into shard
+manifests for merge_shards (parallel/distributed.py).
 """
 
 import logging
@@ -41,9 +43,13 @@ def resolve_contigs(bam: BamReader, fasta: FastaFile, ctg_name=None,
 
 
 def load_model(model_path, add_indel_length=False, phased=False,
-               device="cuda"):
+               device="cuda", mesh=None):
     """Load (or random-init) weights onto `device`; returns (params,
-    forward) with params a PileupNet and forward the wire forward."""
+    forward) with forward the wire forward and params a PileupNet, or with
+    a mesh a ShardedNet laid out per parallel.mesh.param_spec, which the
+    wire forward's network call (and the fused route's) runs with the batch
+    split over the mesh's dp rows -- the in-process analogue of the
+    reference's GNU-parallel chunk fan-out (run_clair3_rna:681-707)."""
     from clair3_rna_torch.models.network import (init_params,
                                                  make_wire_forward_fn)
     from clair3_rna_torch.models.params_io import (params_from_numpy,
@@ -58,8 +64,35 @@ def load_model(model_path, add_indel_length=False, phased=False,
                        "(testing only, calls will be meaningless)")
         params = init_params(0, add_indel_length=add_indel_length,
                              phased=phased, device=device)
+    if mesh is not None:
+        from clair3_rna_torch.parallel.mesh import shard_params
+        params = shard_params(params, mesh)
     _, forward = make_wire_forward_fn(add_indel_length=add_indel_length)
     return params, forward
+
+
+def default_mesh(tp=1, device="cuda"):
+    """A ('dp','tp') mesh over every CUDA card when `device` is CUDA and
+    there is more than one card; None otherwise (single device)."""
+    import torch
+    if torch.device(device).type != "cuda" or torch.cuda.device_count() <= 1:
+        return None
+    from clair3_rna_torch.parallel.mesh import make_mesh
+    return make_mesh(tp=tp)
+
+
+def _mesh_for(args, cfg, device):
+    """(mesh or None, cfg with batch_size rounded up to a multiple of dp)
+    for a calling pass: the default mesh unless --no_device_mesh."""
+    mesh = None
+    if not getattr(args, "no_device_mesh", False):
+        mesh = default_mesh(tp=getattr(args, "tp", 1), device=device)
+    if mesh is not None:
+        dp = mesh.shape["dp"]
+        if cfg.batch_size % dp:
+            cfg = cfg.with_(batch_size=((cfg.batch_size // dp) + 1) * dp)
+        logger.info("[INFO] device mesh: dp=%d tp=%d", dp, mesh.shape["tp"])
+    return mesh, cfg
 
 
 def _resolve_inputs(args):
@@ -98,6 +131,29 @@ def known_positions_from_vcf(vcf_fn):
     return known
 
 
+def run_shard_calling(args, cfg, call_cfg: CallConfig, device):
+    """One shard worker: write this shard's manifests, no merged VCF (see
+    parallel.distributed; merge with the merge_shards subcommand) ->
+    ([], CallStats)."""
+    from clair3_rna_torch.parallel.distributed import run_sharded_calling
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    contigs, bed_regions, known_positions = _resolve_inputs(args)
+    mesh, cfg = _mesh_for(args, cfg, device)
+    params, forward = load_model(args.model_path, phased=cfg.phased,
+                                 device=device, mesh=mesh)
+    stats = run_sharded_calling(
+        args.bam_fn, args.ref_fn, args.output_dir, cfg=cfg,
+        call_cfg=call_cfg, params=params, forward=forward, contigs=contigs,
+        n_shards=args.n_shards, shard_id=args.shard_id,
+        chunk_size=args.chunk_size, known_vcf_positions=known_positions,
+        bed_regions=bed_regions, resume=getattr(args, "resume", False),
+        pileup_backend=getattr(args, "pileup_backend", None), device=device)
+    logger.info("[INFO] shard %d/%d done: %d candidates, %d rows",
+                args.shard_id, args.n_shards, stats.candidates, stats.rows)
+    return [], stats
+
+
 def _attach_run_log(output_dir):
     """Duplicate log records into <output_dir>/run_clair3_rna_torch.log
     (the reference's Tee, run_clair3_rna:75-90)."""
@@ -114,10 +170,11 @@ def _attach_run_log(output_dir):
 
 
 def run_full_calling(args, cfg, call_cfg: CallConfig):
-    """One calling run on args.device -> (output paths, CallStats)
-    ((paths, None) for --dry_run). With --enable_phasing_model the second
-    pass's outputs follow the first pass's, and its CallStats is
-    stats.phased."""
+    """One calling run on args.device (or a mesh of the local cards) ->
+    (output paths, CallStats) ((paths, None) for --dry_run; ([], the
+    shard's CallStats) for a --n_shards worker). With
+    --enable_phasing_model the second pass's outputs follow the first
+    pass's, and its CallStats is stats.phased."""
     if getattr(args, "threads", None):
         # the native tile builder partitions the position axis across this
         # many threads (clair3_rna_torch/native: tile_thread_count)
@@ -134,6 +191,12 @@ def run_full_calling(args, cfg, call_cfg: CallConfig):
             print(f"  {t.ctg_name}\t{t.start}\t{t.end}")
         return [], None
     device = resolve_device(getattr(args, "device", None))
+    if getattr(args, "n_shards", None):
+        if getattr(args, "shard_id", None) is None:
+            raise SystemExit("[ERROR] --n_shards requires --shard_id")
+        os.makedirs(args.output_dir, exist_ok=True)
+        _attach_run_log(args.output_dir)
+        return run_shard_calling(args, cfg, call_cfg, device)
     os.makedirs(args.output_dir, exist_ok=True)
     _attach_run_log(args.output_dir)
     contigs, bed_regions, known_positions = _resolve_inputs(args)
@@ -141,8 +204,9 @@ def run_full_calling(args, cfg, call_cfg: CallConfig):
     backend = resolve_backend(getattr(args, "pileup_backend", None))
     args.pileup_backend = backend
 
+    mesh, cfg = _mesh_for(args, cfg, device)
     params, forward = load_model(args.model_path, phased=cfg.phased,
-                                 device=device)
+                                 device=device, mesh=mesh)
     rediportal_path = args.readiportal_source_fn \
         if args.tag_variant_using_readiportal else None
     prefix = getattr(args, "output_prefix", None) or "output"
@@ -242,8 +306,10 @@ def run_phasing_pass(args, cfg, call_cfg, contigs, first_pass_vcf, device):
             json.dump(stamp, f)
         os.replace(tmp, marker)  # atomic: BAM is complete when marker lands
     phase_s = time.perf_counter() - t0
+    phased_cfg = cfg.with_(phased=True)
+    mesh, phased_cfg = _mesh_for(args, phased_cfg, device)
     params, forward = load_model(args.phased_model_path, phased=True,
-                                 device=device)
+                                 device=device, mesh=mesh)
     prefix = getattr(args, "output_prefix", None) or "output"
     output_path = os.path.join(args.output_dir, prefix + "_enable_phasing.vcf")
     rediportal_path = args.readiportal_source_fn \
@@ -251,7 +317,7 @@ def run_phasing_pass(args, cfg, call_cfg, contigs, first_pass_vcf, device):
     joblog = getattr(args, "joblog", None)
     outputs, stats = run_calling(
         tagged_bam, args.ref_fn, output_path,
-        cfg=cfg.with_(phased=True), call_cfg=call_cfg, params=params,
+        cfg=phased_cfg, call_cfg=call_cfg, params=params,
         forward=forward, contigs=contigs, chunk_size=args.chunk_size,
         rediportal_path=rediportal_path,
         output_no_tagging_path=os.path.join(

@@ -1,14 +1,19 @@
 """Command-line interface.
 
-Mirrors the user surface of `run_clair3_rna` (run_clair3_rna:881-1254) for
-a call on one device, with the optional phased second pass, the
+Mirrors the user surface of `run_clair3_rna` (run_clair3_rna:881-1254): a
+call on one device or a dp x tp mesh of the local cards, with the optional
+phased second pass, sharded calling across processes and its merge, the
 reference's process-level subcommands (create_tensor_pileup, call_var_bam,
-call_variants, sort_vcf) and the evaluation toolkit:
+call_variants, sort_vcf), the evaluation toolkit and training:
 
   python -m clair3_rna_torch call -B reads.bam -R ref.fa -o outdir \\
       -p ont_dorado_drna004 [--device cuda|cpu]
       [--pileup_backend host|fused|hybrid]
       [--enable_phasing_model --phased_model_path phased.npz]
+      [--n_shards N --shard_id I]  (then merge_shards --work_dir outdir)
+  python -m clair3_rna_torch tensor2bin --bam_fn reads.bam --ref_fn ref.fa \\
+      --truth_vcf_fn truth.vcf --output_dir bins
+  python -m clair3_rna_torch train --bin_dir bins --output_fn w.npz
   python -m clair3_rna_torch create_tensor_pileup --bam_fn reads.bam \\
       --ref_fn ref.fa --ctgName chr1 | \\
       python -m clair3_rna_torch call_variants --chkpnt_fn w.npz
@@ -131,6 +136,15 @@ def _add_call_parser(subparsers):
                    help="write a per-chunk timing TSV (the GNU parallel "
                         "--joblog analogue, run_clair3_rna:682); profiler "
                         "traces via CLAIR3_RNA_TORCH_PROFILE=<dir>")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel width of the device mesh")
+    p.add_argument("--no_device_mesh", action="store_true",
+                   help="single-device inference even with multiple devices")
+    p.add_argument("--n_shards", type=int, default=None,
+                   help="multi-host mode: total number of contig-shard "
+                        "workers; this process only writes shard manifests")
+    p.add_argument("--shard_id", type=int, default=None,
+                   help="multi-host mode: this worker's shard index")
     p.add_argument("--dry_run", action="store_true",
                    help="print the resolved contig/chunk plan and exit "
                         "without calling")
@@ -508,7 +522,38 @@ def _add_sort_parser(subparsers):
     p.add_argument("--readiportal_source_fn", default=None)
     p.add_argument("--output_no_tagging_fn", default=None)
     p.add_argument("--no_compress", action="store_true")
+
+    m = subparsers.add_parser(
+        "merge_shards",
+        help="merge contig-shard manifests from `call --n_shards` workers "
+             "into one sorted VCF")
+    m.add_argument("--work_dir", required=True,
+                   help="the shard workers' shared --output_dir")
+    m.add_argument("--n_shards", type=int, required=True)
+    m.add_argument("--output_fn", required=True)
+    m.add_argument("--ref_fn", default=None)
+    m.add_argument("--sample_name", default="SAMPLE")
+    m.add_argument("--qual", type=float, default=None)
+    m.add_argument("--show_ref", action="store_true")
+    m.add_argument("--platform", default="ont_dorado_drna004")
+    m.add_argument("--no_compress", action="store_true")
     return p
+
+
+def _run_merge_shards(args):
+    from clair3_rna_torch.config import PileupConfig
+    from clair3_rna_torch.parallel.distributed import merge_shards
+
+    full_platform = config.PLATFORM_ALIASES.get(args.platform, args.platform)
+    cfg = PileupConfig.for_platform(full_platform, qual_cutoff=args.qual)
+    outputs, n_rows, n_tagged = merge_shards(
+        args.work_dir, args.n_shards, args.output_fn,
+        show_ref=args.show_ref, qual_cutoff=cfg.effective_qual_cutoff,
+        reference_file_path=args.ref_fn, sample_name=args.sample_name,
+        compress=not args.no_compress)
+    print(f"[INFO] merged {args.n_shards} shards -> "
+          f"{', '.join(outputs)} ({n_rows} rows)")
+    return outputs
 
 
 def run_sort(args):
@@ -552,7 +597,10 @@ def main(argv=None):
     _add_interop_parsers(subparsers)
     from clair3_rna_torch.evaluation.cli_tools import (add_tool_parsers,
                                                        dispatch_tool)
+    from clair3_rna_torch.train.cli_tools import (add_train_parsers,
+                                                  dispatch_train)
     add_tool_parsers(subparsers)
+    add_train_parsers(subparsers)
 
     args = parser.parse_args(argv)
     try:
@@ -560,6 +608,8 @@ def main(argv=None):
             return run_call(args)
         if args.command == "sort_vcf":
             return run_sort(args)
+        if args.command == "merge_shards":
+            return _run_merge_shards(args)
         if args.command == "create_tensor_pileup":
             return _run_create_tensor(args)
         if args.command == "call_var_bam":
@@ -568,7 +618,7 @@ def main(argv=None):
             return _run_call_variants(args)
         if args.command == "index":
             return _run_index(args)
-        if dispatch_tool(args):
+        if dispatch_tool(args) or dispatch_train(args):
             return None
     except FileNotFoundError as exc:
         raise SystemExit(

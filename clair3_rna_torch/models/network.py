@@ -24,6 +24,13 @@ its ~1,300 launches and costs the same from 64 to 4096 rows on an H100
 (chip_smoke.py logs both), so the slab is 4096 rows: the host route's
 2048-row batches and the fused route's candidate budgets (1024 and up) take
 one pass each. On the CPU padding rows cost real time, so the slab is 64.
+
+Training (`forward(x, train=True, generator=g)`) runs the whole batch as
+one unslabbed pass with the JAX model's five dropout sites active:
+inverted dropout (kept values scaled by 1/(1-p)) of 0.2 after lstm2, 0.5
+after the L4 selu and 0.2 after each head's dense, its masks drawn from
+the explicit generator `g` (none without one). Inference never draws a
+mask and keeps its slabs.
 """
 
 import math
@@ -35,6 +42,10 @@ from torch import nn
 from clair3_rna_torch import config, resolve_device
 
 NET_SLAB = {"cuda": 4096, "cpu": 64}
+# dropout rates of the JAX model (clair3_rna_tpu/models/network.py): after
+# lstm2, after the L4 selu (the reference's L4 dropout takes the LSTM2
+# rate, clair3_rna/model.py:144), after each head's dense
+L3_DROPOUT, L4_DROPOUT, HEAD_DROPOUT = 0.2, 0.5, 0.2
 # GT21 indices of the homozygous-reference labels AA/CC/GG/TT (task.GT21)
 _REF_GT21_BY_CODE = (0, 4, 7, 9)
 
@@ -101,6 +112,12 @@ class Dense(nn.Module):
         return torch.matmul(x, self.kernel) + self.bias
 
 
+def _dropout(x, keep, rate):
+    """Inverted dropout with a boolean keep mask (flax.linen.Dropout's
+    arithmetic: kept values divided by the keep probability)."""
+    return torch.where(keep.to(x.device), x / (1.0 - rate), 0.0)
+
+
 class PileupNet(nn.Module):
     """gt21 + zygosity (+ variant length) pileup classifier over
     [B, 33, in_channels] (18 channels, or 30 for the phased model)."""
@@ -111,6 +128,7 @@ class PileupNet(nn.Module):
         super().__init__()
         self.add_indel_length = add_indel_length
         self.in_channels = in_channels or config.CHANNEL_SIZE
+        self.dense_units, self.head_units = dense_units, head_units
         self.lstm1 = BiLSTM(self.in_channels, lstm1_units)
         self.lstm2 = BiLSTM(2 * lstm1_units, lstm2_units)
         self.l4 = Dense(config.NO_OF_POSITIONS * 2 * lstm2_units, dense_units)
@@ -132,18 +150,46 @@ class PileupNet(nn.Module):
         return 24 + (2 * config.NO_OF_POSITIONS if self.add_indel_length
                      else 0)
 
-    def _slab(self, x):
+    def dropout_masks(self, batch, generator):
+        """Keep masks of the five dropout sites for `batch` rows, in the
+        JAX model's order (l3, l4, then one per head), drawn from
+        `generator` on its device."""
+        shapes = [((batch, config.NO_OF_POSITIONS, 2 * self.lstm2.units),
+                   L3_DROPOUT), ((batch, self.dense_units), L4_DROPOUT)]
+        shapes += [((batch, self.head_units), HEAD_DROPOUT)] \
+            * len(self.head_names)
+        return [torch.rand(shape, generator=generator,
+                           device=generator.device) < 1.0 - rate
+                for shape, rate in shapes]
+
+    def _slab(self, x, masks=None):
         x = self.lstm2(self.lstm1(x))
+        if masks is not None:
+            x = _dropout(x, masks[0], L3_DROPOUT)
         x = torch.selu(self.l4(x.reshape(x.shape[0], -1)))
+        if masks is not None:
+            x = _dropout(x, masks[1], L4_DROPOUT)
         outs = []
-        for name in self.head_names:
+        for i, name in enumerate(self.head_names):
             h = torch.selu(getattr(self, f"{name}_dense")(x))
+            if masks is not None:
+                h = _dropout(h, masks[2 + i], HEAD_DROPOUT)
             logits = torch.selu(getattr(self, f"{name}_logits")(h))
             outs.append(torch.softmax(logits.float(), dim=-1))
         return torch.cat(outs, dim=-1)
 
-    def forward(self, x):
-        """[B, 33, C] float32 -> [B, n_probs] probabilities."""
+    def forward(self, x, train=False, generator=None):
+        """[B, 33, C] float32 -> [B, n_probs] probabilities. With
+        train=True: one unslabbed pass over the batch, dropout masks from
+        `generator` (no dropout without one)."""
+        if train:
+            masks = None if generator is None \
+                else self.dropout_masks(x.shape[0], generator)
+            return self._slab(x, masks)
+        return self.forward_slabs(x)
+
+    def forward_slabs(self, x):
+        """Inference in fixed slabs (module docstring)."""
         n = x.shape[0]
         slab = NET_SLAB[x.device.type]
         n_pad = -(-n // slab) * slab

@@ -32,6 +32,9 @@ def test_no_jax_imports_in_port_sources():
     bad = []
     files = _port_sources()
     assert len(files) > 25
+    rel = {os.path.relpath(f, REPO) for f in files}
+    for sub in ("parallel", "train"):  # the scan covers every sub-package
+        assert any(r.startswith(f"clair3_rna_torch/{sub}/") for r in rel)
     for path in files:
         tree = ast.parse(open(path).read(), filename=path)
         for node in ast.walk(tree):
@@ -141,6 +144,34 @@ def test_tools_run_with_jax_blocked(tmp_path):
     assert _rows(tmp_path / "piped.vcf")
     assert re.search(r"hybrid routing: [0-9]+ chunks fused", proc.stderr)
     assert "Overall" in proc.stdout and "F1=" in proc.stdout
+
+
+def test_shards_and_training_run_with_jax_blocked(tmp_path):
+    """With the JAX imports blocked: `call --n_shards 2` as shard 0 and
+    shard 1, `merge_shards`, then `tensor2bin` (the merged calls as its
+    truth) and `train --max_epochs 1`."""
+    shard = ["call", "-B", "{bam}", "-R", "{fasta}", "-o", "{d}/out",
+             "--device", "cpu", "--pileup_backend", "fused", "--no_compress",
+             "--n_shards", "2"]
+    proc = _call_with_jax_blocked(
+        tmp_path, ["--n_shards", "2", "--shard_id", "0"], [
+            shard + ["--shard_id", "1"],
+            ["merge_shards", "--work_dir", "{d}/out", "--n_shards", "2",
+             "--output_fn", "{d}/merged.vcf", "--ref_fn", "{fasta}",
+             "--no_compress"],
+            ["tensor2bin", "--bam_fn", "{bam}", "--ref_fn", "{fasta}",
+             "--truth_vcf_fn", "{d}/merged.vcf", "--output_dir", "{d}/bins",
+             "--non_variant_keep_fraction", "1.0", "--device", "cpu"],
+            ["train", "--bin_dir", "{d}/bins", "--output_fn", "{d}/w.npz",
+             "--max_epochs", "1", "--batch_size", "64", "--no_indel_length",
+             "--device", "cpu"]])
+    for shard_id in (0, 1):
+        assert os.listdir(tmp_path / "out" / f"shard_{shard_id:04d}")
+    assert _rows(tmp_path / "merged.vcf")
+    assert "merged 2 shards" in proc.stdout
+    assert os.listdir(tmp_path / "bins")
+    assert (tmp_path / "w.npz").exists()
+    assert "saved weights" in proc.stderr
 
 
 def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
