@@ -92,7 +92,18 @@ Phases (any failed check raises; the exit code is then non-zero):
    the 30-channel model) runs with the trained weights; the train step on
    the card against the CPU (dropout off, 3 steps: loss within 1e-5
    relative, weights within 1e-5); steps/s and samples/s of the train
-   step at batch 2,000, 18 and 30 channels.
+   step at batch 2,000, 18 and 30 channels;
+10. the instruments at quick size on the card, in this process:
+   bench_torch.py --quick (every configuration of bench.py on one short
+   contig each: host, fused, high-depth renorm, mixed-depth host/fused/
+   hybrid, the phased re-call, the fused pass staged on the card with the
+   events-wire ablation, and one fused run under torch.profiler), which
+   raises on any row or path gate; its device busy share must be read
+   from the trace's device rows, and K1 and K3 must launch. Then
+   tools/torch_roofline.py --quick: the kernel, front-end and full-graph
+   slices, K1 launched once a chunk, and the full graph's candidates equal
+   to the bench's staged fused pass's. The busy share, the top kernels and
+   the three slices' times are logged.
 
 Prints one {"kernels": [...]} line and, last, the
 {"ok": true, "device": {...}} line. Exits non-zero without CUDA, and when
@@ -1820,6 +1831,92 @@ def train_phase(work, fasta, bam, truth, tagged_bam):
     return out
 
 
+def instruments_phase(work):
+    """The instruments at quick size on the card (bench_torch.py --quick,
+    tools/torch_roofline.py --quick) in this process, their detail output
+    kept in a log file. Returns a summary dict with the kernel launches
+    of the bench run (the counts set to 0 just before it)."""
+    import contextlib
+
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import bench_torch
+    import torch_roofline
+    from clair3_rna_torch.ops import fused_scatter as fsc
+    from clair3_rna_torch.ops import pileup_kernel as tpk
+    from clair3_rna_torch.ops import tilelet as tlt
+
+    data = os.path.join(work, "bench")
+    os.makedirs(data)
+    logfile = os.path.join(work, "instruments.log")
+    for mod in (tlt, fsc, tpk):
+        mod.reset_launches()
+    t0 = time.time()
+    with open(logfile, "w") as fh, contextlib.redirect_stdout(fh):
+        bench = bench_torch.main(["--quick", "--data-dir", data])
+    bench_s = time.time() - t0
+    launches = {**tlt.launches, **fsc.launches, **tpk.launches}
+    ours = bench["detail"]["ours"]
+    for fn in ("tilelet_expand_v2", "fused_scatter"):
+        if not launches[fn]:
+            fail(f"bench_torch --quick never launched {fn}: {launches}")
+    mixed = ours["mixed_depth"]
+    checks = {
+        "fused_vcf_identical": ours["fused_e2e"]["fused_vcf_identical"],
+        "high_depth_identical":
+            ours["fused_high_depth"]["fused_vcf_identical"],
+        "renorm_candidates":
+            ours["fused_high_depth"]["fused_counters"]["renorm_candidates"],
+        "mixed_identical": all(mixed[b].get("vcf_identical")
+                               for b in ("fused", "hybrid")),
+        "phased_identical":
+            ours["phased_e2e"]["fused"]["fused_vcf_identical"]}
+    if not all(checks.values()):
+        fail(f"bench_torch --quick gates: {checks}")
+    prof = ours["profile_fused_e2e"]
+    if not prof.get("busy_share"):
+        fail(f"no device busy share in the profiled fused run: {prof}")
+    log(f"bench_torch --quick: every configuration and gate passed in "
+        f"{bench_s:.1f} s (datasets {bench['setup']['datasets_s']} s, "
+        f"weights {bench['setup']['weights_s']} s); main {ours['sites_per_s']:.1f} "
+        f"sites/s host, fused {ours['fused_e2e']['sites_per_s']:.1f}; "
+        f"launches {dict((k, v) for k, v in launches.items() if v)}")
+    log(f"profiled fused run: device busy {prof['busy_ms']:.1f} of "
+        f"{prof['window_ms']:.1f} ms = {prof['busy_share']:.4f}, "
+        f"{prof['kernel_launches']} kernel launches; top kernels "
+        + "; ".join(f"{k['name'][:48]} {k['ms']:.2f} ms x{k['launches']}"
+                    for k in prof["top_kernels"][:5])
+        + "; longest idle gaps (ms) "
+        + ", ".join(f"{g['ms']:.1f}" for g in prof["longest_idle_gaps"]))
+    tlt.reset_launches()
+    t0 = time.time()
+    with open(logfile, "a") as fh, contextlib.redirect_stdout(fh):
+        roof = torch_roofline.main(["--quick", "--data-dir", data])
+    roof_s = time.time() - t0
+    if roof["kernel_launches"]["tilelet_expand_v2"] != roof["n_chunks"]:
+        fail(f"roofline kernel_only: K1 launches {roof['kernel_launches']} "
+             f"for {roof['n_chunks']} chunks")
+    dev_only = ours["fused_device_only"]["n_candidates"]
+    if roof["n_candidates"] != dev_only:
+        fail(f"roofline full graph found {roof['n_candidates']} candidates, "
+             f"the bench's staged fused pass {dev_only}")
+    log(f"roofline --quick ({roof_s:.1f} s, {roof['n_chunks']} chunks, "
+        f"{roof['n_events']} events): kernel {roof['kernel_only_s'] * 1e3:.3f}"
+        f" ms, front end {roof['front_end_s'] * 1e3:.3f} ms, full graph "
+        f"{roof['full_graph_s'] * 1e3:.3f} ms (kernel "
+        f"{roof['kernel_share_of_full']:.3f}, tail "
+        f"{roof['tail_share_of_full']:.3f}, mask + network "
+        f"{roof['mask_network_share_of_full']:.3f}); HBM bound "
+        f"{roof['hbm_bound_s'] * 1e3:.4f} ms = "
+        f"{roof['kernel_pct_of_roofline']:.1f}% of the kernel's time")
+    return {"bench_s": bench_s, "roofline_s": roof_s, "launches": launches,
+            "busy_share": prof["busy_share"],
+            "sites_per_s": {"host": ours["sites_per_s"],
+                            "fused": ours["fused_e2e"]["sites_per_s"]},
+            "roofline": {k: roof[k] for k in (
+                "kernel_only_s", "front_end_s", "full_graph_s",
+                "hbm_bound_s", "n_candidates")}}
+
+
 def main():
     # the hybrid run's probe cadence: a bucket with one route measured
     # tries the other on its next chunk, so both routes serve chunks within
@@ -1874,6 +1971,9 @@ def main():
         train = train_phase(work, fasta, bam, truth,
                             runs["fused_phased_v2"]["tagged_bam"])
         train["wall_s"] = time.time() - t0
+        t0 = time.time()
+        instruments = instruments_phase(work)
+        instruments["wall_s"] = time.time() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1903,6 +2003,7 @@ def main():
             "name": name, "route": "cuda",
             "source": f"clair3_rna_torch/csrc/{src}", "replaces": line,
             "launches": runs[run]["launches"][fn],
+            "bench_launches": instruments["launches"][fn],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "cold_ms": k.get("cold_ms"),
             "wrapper_ms": k["wrapper_ms"],
@@ -1922,6 +2023,7 @@ def main():
     log("slice 6 summary " + json.dumps(slice6))
     log("parallel summary " + json.dumps(parallel))
     log("train summary " + json.dumps(train))
+    log("instruments summary " + json.dumps(instruments))
     print(f"[chip_smoke] card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

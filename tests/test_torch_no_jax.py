@@ -1,9 +1,12 @@
 """The PyTorch port stands alone: no file of clair3_rna_torch/, and not
-chip_smoke.py, imports jax, flax, optax or the JAX package; the whole
-package imports and `call` runs to a VCF with those imports blocked; and
-entry points never fall back to the CPU unasked."""
+chip_smoke.py, bench_torch.py, tools/torch_*.py or demo/torch_*.py,
+imports jax, flax, optax or the JAX package; the whole package imports,
+`call` runs to a VCF and bench_torch.py --quick runs every configuration
+with those imports blocked; and entry points never fall back to the CPU
+unasked."""
 
 import ast
+import json
 import os
 import re
 import subprocess
@@ -22,7 +25,12 @@ BLOCKED = ("jax", "flax", "optax", "clair3_rna_tpu")
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "bench_torch.py")]
+    for sub in ("tools", "demo"):
+        files += [os.path.join(REPO, sub, n)
+                  for n in os.listdir(os.path.join(REPO, sub))
+                  if n.startswith("torch_") and n.endswith(".py")]
     for root, _, names in os.walk(os.path.join(REPO, "clair3_rna_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -35,6 +43,14 @@ def test_no_jax_imports_in_port_sources():
     rel = {os.path.relpath(f, REPO) for f in files}
     for sub in ("parallel", "train"):  # the scan covers every sub-package
         assert any(r.startswith(f"clair3_rna_torch/{sub}/") for r in rel)
+    # ... and the instruments beside the package
+    for name in ("bench_torch.py", "tools/torch_roofline.py",
+                 "tools/torch_wire_ablation.py", "tools/torch_scale_run.py",
+                 "tools/torch_mixed_scale_run.py",
+                 "tools/torch_scaling_bench.py",
+                 "tools/torch_phased_delta.py", "demo/torch_make_demo_data.py",
+                 "clair3_rna_torch/pileup/text.py"):
+        assert name in rel
     for path in files:
         tree = ast.parse(open(path).read(), filename=path)
         for node in ast.walk(tree):
@@ -172,6 +188,56 @@ def test_shards_and_training_run_with_jax_blocked(tmp_path):
     assert os.listdir(tmp_path / "bins")
     assert (tmp_path / "w.npz").exists()
     assert "saved weights" in proc.stderr
+
+
+def test_bench_quick_runs_with_jax_blocked(tmp_path):
+    """`bench_torch.py --quick --device cpu` with the JAX imports blocked:
+    every configuration of bench.py runs, its row and path gates hold (it
+    raises otherwise), and the artifact records each configuration."""
+    script = textwrap.dedent(f"""
+        import runpy, sys
+        BLOCKED = {BLOCKED!r}
+
+        class Blocker:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError("blocked: " + name)
+
+        sys.meta_path.insert(0, Blocker())
+        sys.argv = ["bench_torch.py", "--quick", "--device", "cpu",
+                    "--data-dir", {str(tmp_path)!r}]
+        runpy.run_path({os.path.join(REPO, "bench_torch.py")!r},
+                       run_name="__main__")
+        assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", script], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert summary["device"] == "cpu" and summary["value"] > 0
+    with open(tmp_path / "torch_bench_quick.json") as f:
+        ours = json.load(f)["detail"]["ours"]
+    for key in ("high_depth", "sustained_5mb", "fused_e2e",
+                "fused_high_depth", "mixed_depth", "phased_e2e",
+                "fused_device_only", "profile_fused_e2e"):
+        assert key in ours, key
+    assert ours["fused_e2e"]["fused_vcf_identical"]
+    hd = ours["fused_high_depth"]
+    assert hd["fused_vcf_identical"]
+    assert hd["fused_counters"]["renorm_candidates"] > 0
+    assert not hd["fused_counters"]["fallback_chunks"]
+    assert not hd["fused_counters"]["renorm_window_fetches"]
+    assert all(ours["mixed_depth"][b]["vcf_identical"]
+               for b in ("fused", "hybrid"))
+    assert "vs_best_pure" in ours["mixed_depth"]["hybrid"]
+    assert ours["phased_e2e"]["fused"]["fused_vcf_identical"]
+    assert ours["phased_e2e"]["n_rows"] > 0
+    dev = ours["fused_device_only"]
+    assert dev["n_candidates"] == \
+        dev["events_wire_ablation"]["n_candidates"] > 0
+    # a CPU run has no device rows in its trace: no busy share
+    assert ours["profile_fused_e2e"]["busy_share"] is None
 
 
 def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
