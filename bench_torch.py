@@ -25,7 +25,8 @@ Data: bench.py's datasets, simulated by clair3_rna_torch/simdata.py (a copy
 of tests/simdata.py: the same files from the same seed), cached under
 --data-dir (default .bench_data/). First-pass weights are trained once
 through the port's tensor2bin and train on the device, as bench.py trains
-its own, and cached as <data-dir>/torch_bench_weights.npz; the phased
+its own, and cached as <data-dir>/torch_bench_weights.npz beside the
+recipe that trained them (retrained when it differs); the phased
 weights are the committed BENCH_WEIGHTS_PHASED.npz. The reference chain's
 sites/s is read from BENCH_BASELINE_CACHE.json (measured on an earlier
 host, never rewritten here) and reported as such, not as a ratio on this
@@ -216,15 +217,36 @@ def weights_path(sizes):
     return os.path.join(DATA_DIR, name)
 
 
+def _recipe(sizes):
+    """What trains the bench weights, kept beside them."""
+    return {"train": list(sizes["train"]), "batch_size": 256}
+
+
+def _recipe_path(sizes):
+    return weights_path(sizes)[:-len(".npz")] + ".recipe.json"
+
+
+def weights_cached(sizes):
+    """Whether weights_path(sizes) holds weights of sizes' recipe."""
+    try:
+        with open(_recipe_path(sizes)) as f:
+            return (json.load(f) == _recipe(sizes)
+                    and os.path.exists(weights_path(sizes)))
+    except OSError:
+        return False
+
+
 def get_trained_params(sizes, device, train_set=None):
     """First-pass weights trained through the port's tensor2bin and train
     on `device` (bench.py's recipe: every candidate kept, batch 256, no
-    indel-length heads), cached in weights_path(sizes). -> numpy tree."""
+    indel-length heads), cached in weights_path(sizes) beside a stamp of
+    the recipe that trained them (retrained when the recipe differs).
+    -> numpy tree."""
     from clair3_rna_torch.cli import main as cli_main
     from clair3_rna_torch.models.params_io import load_params
 
-    path = weights_path(sizes)
-    if os.path.exists(path):
+    path, recipe = weights_path(sizes), _recipe(sizes)
+    if weights_cached(sizes):
         return load_params(path)
     print("[bench_torch] training bench weights (one-time, cached)...",
           file=sys.stderr)
@@ -239,12 +261,15 @@ def get_trained_params(sizes, device, train_set=None):
                   "--truth_vcf_fn", truth_path, "--output_dir", bins,
                   "--non_variant_keep_fraction", "1.0",
                   "--device", device.type])
-        tmp = path + ".tmp.npz"
+        tmp = os.path.join(tdir, "weights.npz")
         cli_main(["train", "--bin_dir", bins, "--output_fn", tmp,
                   "--max_epochs", str(sizes["train"][3]),
-                  "--batch_size", "256", "--no_indel_length",
-                  "--device", device.type])
+                  "--batch_size", str(recipe["batch_size"]),
+                  "--no_indel_length", "--device", device.type])
         os.replace(tmp, path)
+        with open(os.path.join(tdir, "recipe.json"), "w") as f:
+            json.dump(recipe, f)
+        os.replace(os.path.join(tdir, "recipe.json"), _recipe_path(sizes))
     print(f"[bench_torch] weights trained in {time.time() - t0:.1f} s",
           file=sys.stderr)
     return load_params(path)
@@ -774,7 +799,7 @@ def main(argv=None):
         setup["kernels_s"] = round(time.time() - t0, 1)
     t0 = time.time()
     os.makedirs(DATA_DIR, exist_ok=True)
-    need_weights = not os.path.exists(weights_path(sizes))
+    need_weights = not weights_cached(sizes)
     with tempfile.TemporaryDirectory(dir=DATA_DIR) as tdir:
         data = make_datasets(sizes, train_dir=tdir if need_weights else None)
         setup["datasets_s"] = round(time.time() - t0, 1)

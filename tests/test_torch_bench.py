@@ -100,8 +100,6 @@ def test_main_config_body_matches_jax_host_route(tmp_path, monkeypatch):
     """The main configuration (bench_torch.timed_runs on the host route
     with the bench's trained weights, --quick size) writes the JAX
     package's host-route body for the same dataset and weights."""
-    import numpy as np
-
     import bench_torch
     from clair3_rna_torch.caller.decode import CallConfig
     from clair3_rna_torch.config import PileupConfig
@@ -119,23 +117,48 @@ def test_main_config_body_matches_jax_host_route(tmp_path, monkeypatch):
         params, forward, n_runs=1, chunk_size=sizes["chunk_size"])
     port = bench_torch._vcf_body(bam + ".bench_out.vcf")
 
-    import jax.numpy as jnp
-    from clair3_rna_tpu.caller.decode import CallConfig as JCallConfig
-    from clair3_rna_tpu.caller.pipeline import run_calling
-    from clair3_rna_tpu.config import PileupConfig as JPileupConfig
-    from clair3_rna_tpu.models.network import make_wire_forward_fn as jwire
+    from tests.torch_jax_host import jax_host_body
 
-    def to_jax(t):
-        return {k: to_jax(v) for k, v in t.items()} if isinstance(t, dict) \
-            else jnp.asarray(np.asarray(t))
-
-    out = str(tmp_path / "jax.vcf")
-    _, jforward = jwire()
-    _, stats = run_calling(
-        bam, fasta, out, cfg=JPileupConfig(batch_size=2048),
-        call_cfg=JCallConfig(show_ref=False), params=to_jax(tree),
-        forward=jforward, contigs=["chr1"],
-        chunk_size=sizes["chunk_size"], compress=False, progress=False)
-    want = [line for line in open(out) if not line.startswith("#")]
-    assert run["n_candidates"] == stats.candidates > 0
+    want, n = jax_host_body(bam, fasta, str(tmp_path / "jax.vcf"), tree,
+                            contigs=["chr1"], chunk_size=sizes["chunk_size"])
+    assert run["n_candidates"] == n > 0
     assert port and port == want
+
+
+def test_weights_cache_keyed_on_recipe(tmp_path, monkeypatch):
+    """Cached bench weights are reused only for the recipe that trained
+    them: the same sizes load the cache, another epoch count retrains
+    into the same file, and nothing is left beside it but its recipe."""
+    import bench_torch
+    import clair3_rna_torch.cli
+    from clair3_rna_torch.models.network import init_params
+    from clair3_rna_torch.models.params_io import params_to_numpy, save_params
+
+    calls = []
+
+    def fake_cli(argv):
+        calls.append(argv[0])
+        if argv[0] == "train":
+            out = argv[argv.index("--output_fn") + 1]
+            epochs = int(argv[argv.index("--max_epochs") + 1])
+            save_params(out, params_to_numpy(init_params(epochs,
+                                                         device="cpu")))
+
+    monkeypatch.setattr(clair3_rna_torch.cli, "main", fake_cli)
+    monkeypatch.setattr(bench_torch, "DATA_DIR", str(tmp_path))
+    cpu = torch.device("cpu")
+    train_set = ("ref.fa", "reads.bam", "truth.vcf")
+    first = bench_torch.get_trained_params(bench_torch.FULL, cpu, train_set)
+    assert calls == ["tensor2bin", "train"]
+    assert bench_torch.weights_cached(bench_torch.FULL)
+    again = bench_torch.get_trained_params(bench_torch.FULL, cpu, train_set)
+    assert calls == ["tensor2bin", "train"]
+    assert (again["l4"]["kernel"] == first["l4"]["kernel"]).all()
+    other = dict(bench_torch.FULL,
+                 train=bench_torch.FULL["train"][:3] + (7,))
+    assert not bench_torch.weights_cached(other)
+    retrained = bench_torch.get_trained_params(other, cpu, train_set)
+    assert calls == ["tensor2bin", "train"] * 2
+    assert not (retrained["l4"]["kernel"] == first["l4"]["kernel"]).all()
+    assert sorted(os.listdir(tmp_path)) == ["torch_bench_weights.npz",
+                                            "torch_bench_weights.recipe.json"]

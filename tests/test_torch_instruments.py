@@ -1,7 +1,8 @@
 """The port's instruments at their quick size on the CPU: the roofline
-(tools/torch_roofline.py), the wire ablation (tools/torch_wire_ablation.py)
-and the scaling bench (tools/torch_scaling_bench.py) run to their
-artifacts, and what they count agrees with the fused route; the trace
+(tools/torch_roofline.py) and the wire ablation
+(tools/torch_wire_ablation.py) run to their artifacts on bench_torch.py's
+quick main dataset, and what they count and write is the JAX package's
+host route (run_calling) on the same dataset and weights; the trace
 reader of bench_torch.py; every instrument raises without a card unless it
 is given --device cpu; the port's demo data equals the JAX demo's.
 
@@ -48,6 +49,21 @@ def quick(tmp_path_factory):
         bench_torch.DATA_DIR = saved
 
 
+@pytest.fixture(scope="module")
+def jax_main(quick):
+    """The JAX package's host route on the quick main dataset and weights:
+    (VCF body, candidates)."""
+    import bench_torch
+    from tests.torch_jax_host import jax_host_body
+
+    body, n = jax_host_body(quick["bam"], quick["fasta"],
+                            os.path.join(quick["dir"], "jax_main.vcf"),
+                            quick["tree"], contigs=["chr1"],
+                            chunk_size=bench_torch.QUICK["chunk_size"])
+    assert body and n > 0
+    return body, n
+
+
 def _fused_run(quick, backend):
     import bench_torch
     from clair3_rna_torch.caller.decode import CallConfig
@@ -64,17 +80,17 @@ def _fused_run(quick, backend):
     return run, bench_torch._vcf_body(quick["bam"] + ".bench_out.vcf")
 
 
-def test_roofline_slices_agree_with_fused_route(quick):
+def test_roofline_slices_agree_with_fused_route(quick, jax_main):
     """The roofline's three slices run over the staged chunks; its full
-    graph finds the fused route's candidates, which are the host route's;
-    a CPU run states no share of the card's bound."""
+    graph finds the fused route's candidates, which are the JAX package's
+    host route's, and the fused route writes the JAX body; a CPU run
+    states no share of the card's bound."""
     import torch_roofline
     res = torch_roofline.main(["--quick", "--device", "cpu", "--data-dir",
                                quick["dir"]])
-    fused, _ = _fused_run(quick, "fused")
-    host, _ = _fused_run(quick, "host")
-    assert res["n_candidates"] == fused["n_candidates"] \
-        == host["n_candidates"] > 0
+    fused, body = _fused_run(quick, "fused")
+    assert body == jax_main[0]
+    assert res["n_candidates"] == fused["n_candidates"] == jax_main[1]
     for key in ("kernel_only_s", "front_end_s", "full_graph_s"):
         assert res[key] > 0
     assert res["device"]["type"] == "cpu"
@@ -86,36 +102,24 @@ def test_roofline_slices_agree_with_fused_route(quick):
         assert json.load(f)["n_candidates"] == res["n_candidates"]
 
 
-def test_wire_ablation_bodies_equal_host_route(quick):
+def test_wire_ablation_bodies_equal_host_route(quick, jax_main):
     """Both tilelet wires: the fused route's body equals the host route's
-    (the tool raises otherwise), the nibble wire ships more bytes, and
-    the staged fused pass finds the same candidates on both wires."""
+    (the tool raises otherwise), and the last one it wrote (the v2 wire's)
+    is the JAX package's host body; the nibble wire ships more bytes, and
+    the staged fused pass finds the JAX candidates on both wires."""
+    import bench_torch
     import torch_wire_ablation
     res = torch_wire_ablation.main(["--quick", "--device", "cpu",
                                     "--data-dir", quick["dir"]])
-    _, host_body = _fused_run(quick, "host")
-    assert res["vcf_identical"] and res["n_rows"] == len(host_body) > 0
+    v2_body = bench_torch._vcf_body(quick["bam"] + ".bench_out.vcf")
+    assert res["vcf_identical"] and v2_body == jax_main[0]
+    assert res["n_rows"] == len(jax_main[0])
     assert res["shrink"] > 1.0
     assert (res["nibble"]["device"]["n_candidates"]
             == res["v2"]["device"]["n_candidates"]
-            == res["host"]["n_candidates"])
+            == res["host"]["n_candidates"] == jax_main[1])
     assert res["nibble"]["device"]["wire"] == "nibble"
     assert res["v2"]["device"]["wire"] == "v2"
-
-
-def test_scaling_bench_rows_identical_across_dp(tmp_path):
-    """The dp mesh over repeated CPU slots at dp 1/2/4 gives one body (the
-    tool raises otherwise); balance and the GRCh38 projection are
-    efficiencies in (0, 1]."""
-    import torch_scaling_bench
-    res = torch_scaling_bench.main(["--quick", "--device", "cpu",
-                                    "--data-dir", str(tmp_path)])
-    rows = {r["rows"] for r in res["dp_mesh"].values()}
-    assert len(res["dp_mesh"]) == 3 and len(rows) == 1 and rows.pop() > 0
-    for eff in (list(res["balance"]["efficiency_by_shards"].values())
-                + list(res["projection"]["efficiency_by_shards"].values())):
-        assert 0 < eff <= 1
-    assert res["projection"]["n_chunks"] == 631
 
 
 def test_device_activity_reads_device_rows(tmp_path):

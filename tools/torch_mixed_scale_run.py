@@ -12,7 +12,7 @@ both ways, and its ratio to the best pure route are recorded; speed is
 not asserted.
 
     python tools/torch_mixed_scale_run.py [--contig-len N] [--quick]
-        [--device cuda|cpu] [--data-dir DIR]
+        [--device cuda|cpu] [--data-dir DIR] [--data-only]
 
 --contig-len cuts the contigs (variants keep their density; the islands
 keep their length and depth and sit at the quarters of each contig).
@@ -66,7 +66,6 @@ def main(argv=None):
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--data-dir", default=None)
-    ap.add_argument("--regen", action="store_true")
     ap.add_argument("--data-only", action="store_true",
                     help="simulate and index the dataset, then stop")
     args = ap.parse_args(argv)
@@ -85,8 +84,6 @@ def main(argv=None):
     data_dir = os.path.join(
         bench_torch.DATA_DIR, f"mixed_{N_CONTIGS}x{contig_len}_{DEPTH}"
         f"+{ISLAND_EXTRA_DEPTH}x{island_len}_{SEED}")
-    if args.regen:
-        shutil.rmtree(data_dir, ignore_errors=True)
     fasta, bam, gen_s = tsr.make_data(
         data_dir, N_CONTIGS, contig_len, n_var, seed=SEED,
         extra=islands(contig_len, island_len))
@@ -150,10 +147,8 @@ def main(argv=None):
         "routing_mixed": bool(routing.get("fused_chunks")
                               and routing.get("host_chunks")),
     }
-    out = (os.path.join(bench_torch.DATA_DIR,
-                                    "torch_mixed_scale_quick.json")
-                       if args.quick else os.path.join(
-                           REPO, "TORCH_MIXED_SCALE.json"))
+    out = (os.path.join(bench_torch.DATA_DIR, "torch_mixed_scale_quick.json")
+           if args.quick else os.path.join(REPO, "TORCH_MIXED_SCALE.json"))
     with open(out, "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result))

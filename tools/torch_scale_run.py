@@ -24,12 +24,12 @@ CUDA context, weights to the card) and the parent's wall around the whole
 process (`child_wall_s`). The CUDA kernels are built once in the parent
 before the children start.
 
-    python tools/torch_scale_run.py [--contig-len N] [--n-contigs N]
-        [--quick] [--device cuda|cpu] [--data-dir DIR]
+    python tools/torch_scale_run.py [--contig-len N] [--quick]
+        [--device cuda|cpu] [--data-dir DIR] [--data-only]
 
---contig-len and --n-contigs cut the dataset (variants keep their density
-per base); the cut is recorded in the artifact. --quick: 4 contigs x 6 kb.
---data-only simulates and indexes the dataset and stops.
+--contig-len cuts the contigs (variants keep their density per base); the
+cut is recorded in the artifact. --quick: 4 contigs x 6 kb. --data-only
+simulates and indexes the dataset and stops.
 Writes TORCH_SCALE_RUN.json (--quick: <data-dir>/torch_scale_run_quick.json).
 The RSS budget (2,048 MB, tools/scale_run.py's) bounds what each run adds
 to its ready state, asserted after the artifact is written. Raises without
@@ -272,11 +272,9 @@ def shard_balance_from_joblog(joblog_path, bam_path,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--contig-len", type=int, default=None)
-    ap.add_argument("--n-contigs", type=int, default=None)
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--data-dir", default=None)
-    ap.add_argument("--regen", action="store_true")
     ap.add_argument("--data-only", action="store_true",
                     help="simulate and index the dataset, then stop")
     args = ap.parse_args(argv)
@@ -288,15 +286,12 @@ def main(argv=None):
     device = resolve_device(args.device)   # raises without a card
     if args.data_dir:
         bench_torch.DATA_DIR = os.path.abspath(args.data_dir)
-    base = QUICK if args.quick else {"n_contigs": N_CONTIGS,
-                                     "contig_len": CONTIG_LEN}
-    n_contigs = args.n_contigs or base["n_contigs"]
-    contig_len = args.contig_len or base["contig_len"]
+    n_contigs = QUICK["n_contigs"] if args.quick else N_CONTIGS
+    contig_len = args.contig_len or (QUICK["contig_len"] if args.quick
+                                     else CONTIG_LEN)
     n_var = n_variants_for(contig_len)
     data_dir = os.path.join(bench_torch.DATA_DIR,
                             f"scale_{n_contigs}x{contig_len}_{DEPTH}_{SEED}")
-    if args.regen:
-        shutil.rmtree(data_dir, ignore_errors=True)
     fasta, bam, gen_s = make_data(data_dir, n_contigs, contig_len, n_var)
     if args.data_only:
         return None
@@ -357,10 +352,8 @@ def main(argv=None):
         "measured_shard_balance": shard_balance_from_joblog(
             os.path.join(workdir, "full", "joblog.tsv"), bam),
     }
-    out = (os.path.join(bench_torch.DATA_DIR,
-                                    "torch_scale_run_quick.json")
-                       if args.quick else os.path.join(REPO,
-                                                       "TORCH_SCALE_RUN.json"))
+    out = (os.path.join(bench_torch.DATA_DIR, "torch_scale_run_quick.json")
+           if args.quick else os.path.join(REPO, "TORCH_SCALE_RUN.json"))
     with open(out, "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result))
