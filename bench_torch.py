@@ -371,9 +371,10 @@ def device_activity(trace_path, top=10, n_gaps=5):
     window (every complete event, host and device), from the device's own
     activity rows (kernels, copies, memsets): their union over the window.
     Also the `top` kernels by device time with their launches, and the
-    `n_gaps` longest gaps with no device activity. The prefetch threads'
-    host operators are missing from such a trace; their device work is
-    not."""
+    `n_gaps` longest gaps with no device activity. A
+    CLAIR3_RNA_TORCH_PROFILE trace holds every thread's host operators and
+    spans, and its window is the whole of run_calling: set-up, the chunk
+    loop, sort, bgzip and tabix."""
     with open(trace_path) as f:
         events = [e for e in json.load(f).get("traceEvents", [])
                   if e.get("ph") == "X" and "dur" in e and "ts" in e]
@@ -419,7 +420,8 @@ def device_activity(trace_path, top=10, n_gaps=5):
 def profiled_run(bam_path, fasta_path, cfg, call_cfg, params, forward,
                  chunk_size, backend="fused"):
     """One run under CLAIR3_RNA_TORCH_PROFILE (outside the timed runs) and
-    the device activity of its trace."""
+    the device activity of its trace; the busy share is over the whole
+    run, its serial head and tail included."""
     pdir = os.path.join(DATA_DIR, "torch_profile")
     shutil.rmtree(pdir, ignore_errors=True)
     os.environ["CLAIR3_RNA_TORCH_PROFILE"] = pdir
@@ -432,10 +434,7 @@ def profiled_run(bam_path, fasta_path, cfg, call_cfg, params, forward,
     act = device_activity(os.path.join(pdir, "trace.json"))
     act.update(backend=backend, wall_s=run["wall_s"],
                n_candidates=run["n_candidates"],
-               trace=os.path.relpath(os.path.join(pdir, "trace.json"), REPO),
-               blind_spot=("host operators enqueued from the two prefetch "
-                           "threads are not in the trace; their device "
-                           "activity is"))
+               trace=os.path.relpath(os.path.join(pdir, "trace.json"), REPO))
     return act
 
 

@@ -1,0 +1,13 @@
+"""Seconds of extraction on the prefetch threads (the span chunk.extract:
+reference fetch, extract_region_packed, masks), summed over the window's
+fused-attempted chunks (the joblog's extract_s; thread-summed: the two
+prefetch threads overlap), per Gbase of read input. Nothing to read without
+fused chunks or the columns."""
+
+
+def read(ctx):
+    rows = [r for job in ctx["jobs"] for rows in job.get("joblog_rows", [])
+            for r in rows if r.get("route") in ("fused", "fallback")]
+    if not rows or not ctx["gbases"]:
+        return None
+    return sum(float(r["extract_s"]) for r in rows) / ctx["gbases"]

@@ -134,8 +134,14 @@ def _add_call_parser(subparsers):
                         "are redone")
     p.add_argument("--joblog", default=None,
                    help="write a per-chunk timing TSV (the GNU parallel "
-                        "--joblog analogue, run_clair3_rna:682); profiler "
-                        "traces via CLAIR3_RNA_TORCH_PROFILE=<dir>")
+                        "--joblog analogue, run_clair3_rna:682): contig, "
+                        "start, end, candidates, build_seconds, route "
+                        "(fused|host|fallback), worker, starttime, "
+                        "donetime (epoch s), wait_s, the fused pass's "
+                        "extract_s, stage_s, h2d_s, launch_s, sync_s, "
+                        "escape_s, decode_s, staged_rows, k1_bytes, "
+                        "budget, retries; profiler traces of every thread "
+                        "via CLAIR3_RNA_TORCH_PROFILE=<dir>")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel width of the device mesh")
     p.add_argument("--no_device_mesh", action="store_true",

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from clair3_rna_torch import config
+from clair3_rna_torch.caller import spans
 from clair3_rna_torch.config import PileupConfig
 from clair3_rna_torch.ops import fused_scatter as fsc
 from clair3_rna_torch.ops import tilelet as tlt
@@ -769,39 +770,45 @@ class FusedChunkCaller:
         from clair3_rna_torch.pileup.builder import (SparseIndels,
                                                      _alt_data_fast)
 
-        if self.mode == "packed":
-            if not hasattr(data, "tl_codes"):  # PileupEvents given: convert
-                from clair3_rna_torch.pileup.packed import packed_from_events
-                data = packed_from_events(data)
-            if data.max_rank >= tlt.MAX_RANK:
-                # rank exceeds the exact-f32 range: host route handles it
-                return self._fallback()
-            staged = stage_chunk_packed(data, ref_codes, self.cfg, core_lo,
-                                        core_hi, cover_allow=cover_allow,
-                                        cand_allow=cand_allow,
-                                        wire=self.wire)
-            indels = data.sparse_indels()
-        else:
-            max_rank = max((int(a.max()) for a in (
-                data.base_rank, data.ins_rank, data.del_rank) if len(a)),
-                default=0)
-            if max_rank >= fsc.MAX_RANK:
-                # the scatter kernel's ranks are f32: beyond 2^24 the host
-                # route handles the chunk
-                return self._fallback()
-            staged = stage_chunk(data, ref_codes, self.cfg, core_lo,
-                                 core_hi, cover_allow=cover_allow,
-                                 cand_allow=cand_allow)
-            indels = SparseIndels.from_events(data)
-        tensors = staged_tensors(staged, self.device)
+        with spans.span("chunk.stage"):
+            if self.mode == "packed":
+                if not hasattr(data, "tl_codes"):  # PileupEvents: convert
+                    from clair3_rna_torch.pileup.packed import \
+                        packed_from_events
+                    data = packed_from_events(data)
+                if data.max_rank >= tlt.MAX_RANK:
+                    # rank exceeds the exact-f32 range: host route handles it
+                    return self._fallback()
+                staged = stage_chunk_packed(data, ref_codes, self.cfg,
+                                            core_lo, core_hi,
+                                            cover_allow=cover_allow,
+                                            cand_allow=cand_allow,
+                                            wire=self.wire)
+                indels = data.sparse_indels()
+                spans.note(staged_rows=int(staged.tl_row_off[-1]),
+                           k1_bytes=tlt.kernel_bytes(staged))
+            else:
+                max_rank = max((int(a.max()) for a in (
+                    data.base_rank, data.ins_rank, data.del_rank) if len(a)),
+                    default=0)
+                if max_rank >= fsc.MAX_RANK:
+                    # the scatter kernel's ranks are f32: beyond 2^24 the
+                    # host route handles the chunk
+                    return self._fallback()
+                staged = stage_chunk(data, ref_codes, self.cfg, core_lo,
+                                     core_hi, cover_allow=cover_allow,
+                                     cand_allow=cand_allow)
+                indels = SparseIndels.from_events(data)
+            # deep chunks fold their raw windows into the one output (max
+            # coverage bounds candidate depth, so only such chunks can flag
+            # renorm candidates)
+            max_depth = config.MAX_DEPTH_BY_PLATFORM.get(self.cfg.platform,
+                                                         config.MAX_DEPTH)
+            fold = bool(len(data.cover_count)
+                        and int(data.cover_count.max()) > max_depth * 1.5)
+        with spans.span("chunk.h2d"):
+            tensors = staged_tensors(staged, self.device)
         core = (staged.core_lo, staged.core_hi)
-        # deep chunks fold their raw windows into the one output (max
-        # coverage bounds candidate depth, so only such chunks can flag
-        # renorm candidates)
-        max_depth = config.MAX_DEPTH_BY_PLATFORM.get(self.cfg.platform,
-                                                     config.MAX_DEPTH)
-        fold = bool(len(data.cover_count)
-                    and int(data.cover_count.max()) > max_depth * 1.5)
         if fold:
             # the fold block is sized by the budget, so deep (candidate-
             # sparse) chunks always probe at the base budget
@@ -809,8 +816,7 @@ class FusedChunkCaller:
         else:
             with self._lock:
                 budget = self._next_budget
-        packed_out = self._get_fused(budget, fold)(tensors, core) \
-            .cpu().numpy()
+        packed_out = self._fused_pass(budget, fold, tensors, core)
         n = int(packed_out[0, 0])
         if n > budget:
             # dense-candidate chunk: rerun the SAME staged tensors once at
@@ -821,39 +827,41 @@ class FusedChunkCaller:
             while budget < n:
                 budget *= 2
             self._count("overflow_retries")
-            packed_out = self._get_fused(budget, fold)(tensors, core) \
-                .cpu().numpy()
+            spans.count("retries")
+            packed_out = self._fused_pass(budget, fold, tensors, core)
+        spans.note(budget=budget)
         if not fold:
             want = self.max_candidates
             while want < min(n + (n >> 2), self.max_budget):
                 want *= 2
             with self._lock:
                 self._next_budget = want
-        win_rows = packed_out[1 + budget:]
-        body = packed_out[1:1 + budget]
-        P = body.shape[1] - 12
-        cand = body[:, 0].astype(np.int64)
-        out = body[:, 1:1 + P]
-        gcounts = body[:, 1 + P:5 + P].astype(np.int64)
-        granks = body[:, 5 + P:9 + P].astype(np.int64)
-        ref_count = body[:, 9 + P].astype(np.int64)
-        depth_c = body[:, 10 + P].astype(np.int64)
-        flags = body[:, 11 + P].astype(np.int64)
-        cand = cand[:n]
-        flags = flags[:n]
-        probs, needs_decode = out[:n, :-1], out[:n, -1] != 0.0
-        if self.call_cfg.show_ref:
-            needs_decode = np.ones(n, dtype=bool)
-        if (flags >= 4).any():
-            # depth beyond the AF-threshold table: candidacy itself unsound
-            return self._fallback()
+        with spans.span("chunk.decode"):
+            win_rows = packed_out[1 + budget:]
+            body = packed_out[1:1 + budget]
+            P = body.shape[1] - 12
+            cand = body[:, 0].astype(np.int64)
+            out = body[:, 1:1 + P]
+            gcounts = body[:, 1 + P:5 + P].astype(np.int64)
+            granks = body[:, 5 + P:9 + P].astype(np.int64)
+            ref_count = body[:, 9 + P].astype(np.int64)
+            depth_c = body[:, 10 + P].astype(np.int64)
+            flags = body[:, 11 + P].astype(np.int64)
+            cand = cand[:n]
+            flags = flags[:n]
+            probs, needs_decode = out[:n, :-1], out[:n, -1] != 0.0
+            if self.call_cfg.show_ref:
+                needs_decode = np.ones(n, dtype=bool)
+            if (flags >= 4).any():
+                # depth beyond the AF-threshold table: candidacy unsound
+                return self._fallback()
 
-        pos_abs = cand.astype(np.int64) + staged.start
-        ins_lo = np.searchsorted(indels.ins_pos, pos_abs, side="left")
-        ins_hi = np.searchsorted(indels.ins_pos, pos_abs, side="right")
-        del_lo = np.searchsorted(indels.del_pos, pos_abs, side="left")
-        del_hi = np.searchsorted(indels.del_pos, pos_abs, side="right")
-        eff = np.maximum(staged.ref_code[cand], 0)
+            pos_abs = cand.astype(np.int64) + staged.start
+            ins_lo = np.searchsorted(indels.ins_pos, pos_abs, side="left")
+            ins_hi = np.searchsorted(indels.ins_pos, pos_abs, side="right")
+            del_lo = np.searchsorted(indels.del_pos, pos_abs, side="left")
+            del_hi = np.searchsorted(indels.del_pos, pos_abs, side="right")
+            eff = np.maximum(staged.ref_code[cand], 0)
 
         def _alt(i):
             return _alt_data_fast(
@@ -862,67 +870,81 @@ class FusedChunkCaller:
                 int(ins_lo[i]), int(ins_hi[i]), int(del_lo[i]),
                 int(del_hi[i]), ref_seq, ref_lo)
 
-        host_rows = []
-        splice_idx = np.nonzero((flags & 2) != 0)[0]
-        if len(splice_idx):
-            if host_ctx is None or len(splice_idx) > self.hatch_max:
-                return self._fallback()
-            # the host backfill mutates the shared image across +-FLANK, so
-            # the 1-position mini rebuild is exact only for flagged
-            # candidates with no other candidate within 2*FLANK
-            for i in splice_idx:
-                if ((i > 0 and cand[i] - cand[i - 1] <= 2 * FLANK)
-                        or (i + 1 < n and cand[i + 1] - cand[i] <= 2 * FLANK)):
+        with spans.span("chunk.escape"):
+            host_rows = []
+            splice_idx = np.nonzero((flags & 2) != 0)[0]
+            if len(splice_idx):
+                if host_ctx is None or len(splice_idx) > self.hatch_max:
                     return self._fallback()
-            recs = self._hatch_records(host_ctx, ctg_name, cand, splice_idx,
-                                       staged.start)
-            if recs is None:
-                return self._fallback()
-            from clair3_rna_torch.caller.pipeline import call_tensor_records
-            host_rows += call_tensor_records(recs, host_ctx["forward"],
-                                             self.params, self.cfg,
-                                             self.call_cfg)
-            needs_decode = needs_decode.copy()
-            needs_decode[splice_idx] = False  # handled by the hatch
-            self._count("hatch_chunks")
-            self._count("hatch_candidates", len(splice_idx))
+                # the host backfill mutates the shared image across +-FLANK,
+                # so the 1-position mini rebuild is exact only for flagged
+                # candidates with no other candidate within 2*FLANK
+                for i in splice_idx:
+                    if ((i > 0 and cand[i] - cand[i - 1] <= 2 * FLANK)
+                            or (i + 1 < n
+                                and cand[i + 1] - cand[i] <= 2 * FLANK)):
+                        return self._fallback()
+                recs = self._hatch_records(host_ctx, ctg_name, cand,
+                                           splice_idx, staged.start)
+                if recs is None:
+                    return self._fallback()
+                from clair3_rna_torch.caller.pipeline import \
+                    call_tensor_records
+                host_rows += call_tensor_records(recs, host_ctx["forward"],
+                                                 self.params, self.cfg,
+                                                 self.call_cfg)
+                needs_decode = needs_decode.copy()
+                needs_decode[splice_idx] = False  # handled by the hatch
+                self._count("hatch_chunks")
+                self._count("hatch_candidates", len(splice_idx))
 
-        renorm_idx = np.nonzero(flags == 1)[0]
-        if len(renorm_idx):
-            if host_ctx is None:
-                return self._fallback()
-            wins = None
-            if fold and len(win_rows):
-                n_ch = self.cfg.channel_size
-                w = config.NO_OF_POSITIONS
-                wins_all = win_rows.reshape(-1)[:budget * w * n_ch] \
-                    .reshape(budget, w, n_ch)
-                wins = wins_all[renorm_idx].astype(np.int32)
-                self._count("renorm_fold_chunks")
-            recs = self._renorm_records(tensors, core, ctg_name, staged,
-                                        cand, renorm_idx, depth_c, ref_seq,
-                                        ref_lo, _alt, wins=wins)
-            from clair3_rna_torch.caller.pipeline import call_tensor_records
-            host_rows += call_tensor_records(recs, host_ctx["forward"],
-                                             self.params, self.cfg,
-                                             self.call_cfg)
-            needs_decode = needs_decode.copy()
-            needs_decode[renorm_idx] = False  # handled by the renorm path
-            self._count("renorm_chunks")
-            self._count("renorm_candidates", len(renorm_idx))
+            renorm_idx = np.nonzero(flags == 1)[0]
+            if len(renorm_idx):
+                if host_ctx is None:
+                    return self._fallback()
+                wins = None
+                if fold and len(win_rows):
+                    n_ch = self.cfg.channel_size
+                    w = config.NO_OF_POSITIONS
+                    wins_all = win_rows.reshape(-1)[:budget * w * n_ch] \
+                        .reshape(budget, w, n_ch)
+                    wins = wins_all[renorm_idx].astype(np.int32)
+                    self._count("renorm_fold_chunks")
+                recs = self._renorm_records(tensors, core, ctg_name, staged,
+                                            cand, renorm_idx, depth_c,
+                                            ref_seq, ref_lo, _alt, wins=wins)
+                from clair3_rna_torch.caller.pipeline import \
+                    call_tensor_records
+                host_rows += call_tensor_records(recs, host_ctx["forward"],
+                                                 self.params, self.cfg,
+                                                 self.call_cfg)
+                needs_decode = needs_decode.copy()
+                needs_decode[renorm_idx] = False  # handled by the renorm
+                self._count("renorm_chunks")
+                self._count("renorm_candidates", len(renorm_idx))
 
-        dec_idx = np.nonzero(needs_decode)[0]
-        alt_data = [_alt(i) for i in dec_idx]
-        from clair3_rna_torch.pileup.builder import _flanked_ref
-        refseqs = [_flanked_ref(ref_seq, ref_lo, int(pos_abs[i]), FLANK)
-                   for i in dec_idx]
-        rows = decode_batch([ctg_name] * len(dec_idx),
-                            [int(pos_abs[i]) + 1 for i in dec_idx],
-                            refseqs, alt_data, probs[dec_idx], self.call_cfg)
-        if host_rows:
-            rows = sorted(rows + host_rows,
-                          key=lambda r: int(r.split("\t", 2)[1]))
+        with spans.span("chunk.decode"):
+            dec_idx = np.nonzero(needs_decode)[0]
+            alt_data = [_alt(i) for i in dec_idx]
+            from clair3_rna_torch.pileup.builder import _flanked_ref
+            refseqs = [_flanked_ref(ref_seq, ref_lo, int(pos_abs[i]), FLANK)
+                       for i in dec_idx]
+            rows = decode_batch([ctg_name] * len(dec_idx),
+                                [int(pos_abs[i]) + 1 for i in dec_idx],
+                                refseqs, alt_data, probs[dec_idx],
+                                self.call_cfg)
+            if host_rows:
+                rows = sorted(rows + host_rows,
+                              key=lambda r: int(r.split("\t", 2)[1]))
         return rows, n
+
+    def _fused_pass(self, budget, fold, tensors, core):
+        """One fused pass: its launches (chunk.launch), then the wait for
+        its one output on the host (chunk.sync)."""
+        with spans.span("chunk.launch"):
+            out = self._get_fused(budget, fold)(tensors, core)
+        with spans.span("chunk.sync"):
+            return out.cpu().numpy()
 
     def _hatch_records(self, host_ctx, ctg_name, cand, flagged, start):
         """Targeted host rebuild of isolated splice-flagged candidates: each

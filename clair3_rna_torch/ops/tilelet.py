@@ -102,6 +102,16 @@ launches, reset_launches, _count_launch = kernel_io.launch_counter(
 
 # --- plain PyTorch version ---------------------------------------------------
 
+def kernel_bytes(st):
+    """What one K1/K2 launch on a staged chunk (a StagedPacked) must move:
+    each staged row read once (codes, validity on the v2 wire, rank,
+    strand), the tile offsets, and C_PAD + G_PAD f32 a position written."""
+    row = (st.tl_codes.shape[1] + 4 + 1
+           + (st.tl_valid.shape[1] if st.tl_valid is not None else 0))
+    return (int(st.tl_row_off[-1]) * row + st.tl_row_off.nbytes
+            + (C_PAD + G_PAD) * st.width * 4)
+
+
 def _decode(tl_codes, tl_valid, wire):
     """[R, bytes] wire -> [R, POS_TILE] int64 codes, >= 4 meaning no base."""
     r = tl_codes.shape[0]

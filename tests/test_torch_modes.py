@@ -183,7 +183,11 @@ def test_joblog_and_profile_trace(data, tmp_path, monkeypatch):
                                ["--joblog", joblog])
         assert got == want
         rows = open(joblog).read().splitlines()
-        assert rows[0] == "contig\tstart\tend\tcandidates\tbuild_seconds"
+        assert rows[0] == (
+            "contig\tstart\tend\tcandidates\tbuild_seconds\troute\tworker"
+            "\tstarttime\tdonetime\twait_s\textract_s\tstage_s\th2d_s"
+            "\tlaunch_s\tsync_s\tescape_s\tdecode_s\tstaged_rows\tk1_bytes"
+            "\tbudget\tretries")
         assert len(rows) == 4  # three 10 kb chunks
         assert sum(int(r.split("\t")[3]) for r in rows[1:]) \
             == stats.candidates > 0

@@ -41,15 +41,6 @@ sys.path.insert(0, REPO)
 H100_HBM_BPS = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 
 
-def kernel_bytes(st):
-    """What one K1/K2 launch on a staged chunk must move."""
-    from clair3_rna_torch.ops import tilelet as tlt
-    row = (st.tl_codes.shape[1] + 4 + 1
-           + (st.tl_valid.shape[1] if st.tl_valid is not None else 0))
-    return (int(st.tl_row_off[-1]) * row + st.tl_row_off.nbytes
-            + (tlt.C_PAD + tlt.G_PAD) * st.width * 4)
-
-
 def measure(chunks, wire, params, cfg, n_best=3):
     """The three slices' stream-ordered seconds (best of n_best), the
     kernel launches of one kernel_only sweep, and the candidates of one
@@ -100,6 +91,7 @@ def main(argv=None):
     from clair3_rna_torch import resolve_device
     from clair3_rna_torch.config import PileupConfig
     from clair3_rna_torch.models.params_io import params_from_numpy
+    from clair3_rna_torch.ops.tilelet import kernel_bytes
 
     device = resolve_device(args.device)   # raises without a card
     if args.data_dir:
