@@ -336,7 +336,7 @@ JOBLOG_COLUMNS = (
     "contig", "start", "end", "candidates", "build_seconds", "route",
     "worker", "starttime", "donetime", "wait_s", "extract_s", "stage_s",
     "h2d_s", "launch_s", "sync_s", "escape_s", "decode_s", "staged_rows",
-    "k1_bytes", "budget", "retries")
+    "k1_bytes", "budget", "retries", "net_slabs", "net_graph_slabs")
 # the fused chunk pass's spans, in joblog order (ops/fused_pileup.py)
 FUSED_STAGES = ("extract", "stage", "h2d", "launch", "sync", "escape",
                 "decode")
@@ -356,7 +356,8 @@ def joblog_line(task, candidates, rec, route, wait_s, done_ns):
         _epoch(rec.start_epoch_ns), _epoch(done_ns), f"{wait_s:.6f}",
         *(f"{rec.seconds('chunk.' + k):.6f}" for k in FUSED_STAGES),
         *(str(c.get(k, "")) for k in ("staged_rows", "k1_bytes", "budget")),
-        str(c.get("retries", 0))]) + "\n"
+        *(str(c.get(k, 0)) for k in ("retries", "net_slabs",
+                                     "net_graph_slabs"))]) + "\n"
 
 
 @_profiled
@@ -398,8 +399,11 @@ def run_calling(bam_path: str, ref_path: str, output_path: str, *,
     extract_s, stage_s, h2d_s, launch_s, sync_s, escape_s and decode_s
     (0 on host chunks), staged_rows (tilelet rows staged), k1_bytes (what
     the tilelet kernel's launch moves, ops/tilelet.kernel_bytes), budget
-    (the fused candidate budget) and retries (overflow reruns); the last
-    four are empty where the chunk staged or ran nothing of theirs (host
+    (the fused candidate budget), retries (overflow reruns), net_slabs and
+    net_graph_slabs (the network slabs the chunk's build ran, and those of
+    them replayed from a CUDA graph, models/network.py; 0 on host chunks,
+    whose batches run on the main thread); staged_rows, k1_bytes and
+    budget are empty where the chunk staged or ran nothing of theirs (host
     chunks, the events wire).
     Setting CLAIR3_RNA_TORCH_PROFILE=<dir> additionally captures a
     torch.profiler trace of the whole run (<dir>/trace.json, Chrome trace

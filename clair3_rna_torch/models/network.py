@@ -19,11 +19,24 @@ so the BLAS picks the same kernel and a row's probabilities do not depend
 on which batch it rode in. The host route (cross-chunk batches) and the
 fused route (per-chunk candidate budgets) must emit identical rows; without
 slabs the same rows differ between batch sizes, by up to ~3e-7 on an H100
-and at batches of a few rows on the CPU. On a card one pass is bound by
-its ~1,300 launches and costs the same from 64 to 4096 rows on an H100
+and at batches of a few rows on the CPU. On a card an eager pass is bound
+by its ~1,490 launches and costs the same from 64 to 4096 rows on an H100
 (chip_smoke.py logs both), so the slab is 4096 rows: the host route's
 2048-row batches and the fused route's candidate budgets (1024 and up) take
 one pass each. On the CPU padding rows cost real time, so the slab is 64.
+
+On a card those launches are host time, so an inference slab replays a
+CUDA graph of itself: the same kernels on the same shapes, so the same
+bits. A module's first slab of each (device, channels, slab rows) runs
+eagerly; later ones take a free graph slot (its graph, static input and
+output, its own memory pool, ~2.5 GB at 4096 rows), capturing one when none
+is free, up to GRAPH_SLOTS a key for the callers that run at once (two
+prefetch threads and the main thread), and run eagerly beyond that. A
+replay copies the slab in, replays and copies the output out on the
+caller's stream, so what forward returns never aliases a slot. Training,
+tensors autograd records, the CPU and the mesh's shells (parallel/mesh.py,
+whose layers are not this module's) stay eager. The counters net_slabs
+and net_graph_slabs (caller/spans.py) count a chunk's slabs and replays.
 
 Training (`forward(x, train=True, generator=g)`) runs the whole batch as
 one unslabbed pass with the JAX model's five dropout sites active:
@@ -34,20 +47,26 @@ mask and keeps its slabs.
 """
 
 import math
+import threading
+import weakref
 
 import numpy as np
 import torch
 from torch import nn
 
 from clair3_rna_torch import config, resolve_device
+from clair3_rna_torch.caller import spans
 
 NET_SLAB = {"cuda": 4096, "cpu": 64}
+# graph slots a module keeps a key: two prefetch threads and the main thread
+GRAPH_SLOTS = 3
 # dropout rates of the JAX model (clair3_rna_tpu/models/network.py): after
 # lstm2, after the L4 selu (the reference's L4 dropout takes the LSTM2
 # rate, clair3_rna/model.py:144), after each head's dense
 L3_DROPOUT, L4_DROPOUT, HEAD_DROPOUT = 0.2, 0.5, 0.2
 # GT21 indices of the homozygous-reference labels AA/CC/GG/TT (task.GT21)
 _REF_GT21_BY_CODE = (0, 4, 7, 9)
+_REF_GT21 = {}  # device -> _REF_GT21_BY_CODE on it (prescreen_column)
 
 
 class LSTMDirection(nn.Module):
@@ -189,14 +208,146 @@ class PileupNet(nn.Module):
         return self.forward_slabs(x)
 
     def forward_slabs(self, x):
-        """Inference in fixed slabs (module docstring)."""
+        """Inference in fixed slabs, replayed from CUDA graphs where
+        _slab_graphs allows (module docstring)."""
         n = x.shape[0]
         slab = NET_SLAB[x.device.type]
         n_pad = -(-n // slab) * slab
         if n_pad != n:
             x = torch.cat([x, x.new_zeros((n_pad - n,) + tuple(x.shape[1:]))])
-        outs = [self._slab(x[lo:lo + slab]) for lo in range(0, n_pad, slab)]
-        return torch.cat(outs)[:n]
+        graphs = self._slab_graphs(x)
+        key = (x.device, x.shape[-1], slab)
+        outs, replayed = [], 0
+        for lo in range(0, n_pad, slab):
+            out = None if graphs is None else graphs.run(self, key,
+                                                         x[lo:lo + slab])
+            if out is None:
+                out = self._slab(x[lo:lo + slab])
+            else:
+                replayed += 1
+            outs.append(out)
+        spans.count("net_slabs", len(outs))
+        spans.count("net_graph_slabs", replayed)
+        return (outs[0] if len(outs) == 1 else torch.cat(outs))[:n]
+
+    def _slab_graphs(self, x):
+        """This module's graph slots if its slabs of x may replay a graph,
+        else None: float32 on a CUDA device, autograd not recording, and a
+        plain PileupNet (its own layers, not a mesh shell's) whose weights
+        all lie on x's device. Slots captured from other weight tensors
+        are dropped."""
+        if x.device.type != "cuda" or x.dtype != torch.float32:
+            return None
+        if any(type(m) not in (BiLSTM, Dense) for m in self.children()):
+            return None
+        params = list(self.parameters())
+        if not params or any(p.device != x.device for p in params):
+            return None
+        if torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad for p in params)):
+            return None
+        weights = tuple(p.data_ptr() for p in params)
+        with _GRAPHS_LOCK:
+            graphs = _GRAPHS.get(self)
+            if graphs is None or graphs.weights != weights:
+                graphs = _GRAPHS[self] = _SlabGraphs(weights)
+        return graphs
+
+
+class _Slot:
+    """One captured slab: its graph, static input and output, and an event
+    after its last copy-out."""
+
+    def __init__(self, graph, x, out):
+        self.graph, self.x, self.out = graph, x, out
+        self.done = torch.cuda.Event()
+
+
+class _SlabGraphs:
+    """A module's graph slots by key (device, channels, slab rows), behind a
+    lock: the first slab of a key runs eagerly (the warm-up a capture
+    needs), a free slot replays, a new slot is captured while fewer than
+    GRAPH_SLOTS exist, and beyond that the slab runs eagerly."""
+
+    def __init__(self, weights):
+        self.weights = weights
+        self._lock = threading.Lock()
+        self._seen = set()
+        self._free = {}
+        self._made = {}
+
+    def _take(self, key):
+        """-> a free slot, "capture" (one more slot is the caller's to
+        capture), or None (run eagerly)."""
+        with self._lock:
+            if key not in self._seen:
+                self._seen.add(key)
+                return None
+            free = self._free.setdefault(key, [])
+            if free:
+                return free.pop()
+            if self._made.get(key, 0) < GRAPH_SLOTS:
+                self._made[key] = self._made.get(key, 0) + 1
+                return "capture"
+            return None
+
+    def run(self, net, key, xs):
+        """net's slab xs [slab, 33, C] replayed from a slot -> a fresh
+        output tensor, or None if it is to run eagerly."""
+        slot = self._take(key)
+        if slot is None:
+            return None
+        stream = torch.cuda.current_stream(xs.device)
+        if slot == "capture":
+            try:
+                slot = _capture(net, xs, stream)
+            except BaseException:
+                with self._lock:
+                    self._made[key] -= 1
+                raise
+        else:
+            stream.wait_event(slot.done)  # its last user's copy-out
+            with torch.inference_mode():
+                slot.x.copy_(xs)
+        slot.graph.replay()
+        out = slot.out.clone()
+        slot.done.record(stream)
+        with self._lock:
+            self._free[key].append(slot)
+        return out
+
+
+def _capture(net, xs, stream):
+    """A new slot holding net's slab of xs's shape, captured on a side
+    stream after a warm-up there (this thread's BLAS handle and workspace
+    made outside the capture); its static input holds xs. One capture at
+    a time; thread-local capture mode, so the other threads' launches,
+    syncs and allocations go on."""
+    dev = xs.device
+    with _CAPTURE_LOCK, torch.inference_mode():
+        x = xs.clone()
+        side = _CAPTURE_STREAMS.get(dev)
+        if side is None:
+            side = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            net._slab(x)
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = net._slab(x)
+            finally:
+                graph.capture_end()
+        stream.wait_stream(side)
+    return _Slot(graph, x, out)
+
+
+# graph slots by module, without keeping a module alive or entering its
+# state (deepcopy, state_dict); one capture stream a device
+_GRAPHS = weakref.WeakKeyDictionary()
+_GRAPHS_LOCK = threading.Lock()
+_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_STREAMS = {}
 
 
 def _as_tensor(a, device, dtype=None):
@@ -222,8 +373,12 @@ def prescreen_column(probs, center_codes):
     """homRef early-exit verdict (clair3_rna/call_variants.py:540-542) as a
     0/1 float column: 1 = needs host decode. center_codes [B] are the
     reference-base codes (0..3) at the window centers."""
-    ref_gt21 = torch.tensor(_REF_GT21_BY_CODE, dtype=torch.int64,
-                            device=probs.device)
+    ref_gt21 = _REF_GT21.get(probs.device)
+    if ref_gt21 is None:
+        # copied once a device: a copy from host memory waits for the
+        # device's queue, which would hold the caller up mid-pass
+        ref_gt21 = _REF_GT21[probs.device] = torch.tensor(
+            _REF_GT21_BY_CODE, dtype=torch.int64, device=probs.device)
     ref_idx = ref_gt21[center_codes.to(torch.int64)]
     ref_prob = probs[:, :21].gather(1, ref_idx[:, None])[:, 0]
     certain_ref = (probs[:, 21] >= 0.5) & (ref_prob >= 0.5)

@@ -187,7 +187,7 @@ def test_joblog_and_profile_trace(data, tmp_path, monkeypatch):
             "contig\tstart\tend\tcandidates\tbuild_seconds\troute\tworker"
             "\tstarttime\tdonetime\twait_s\textract_s\tstage_s\th2d_s"
             "\tlaunch_s\tsync_s\tescape_s\tdecode_s\tstaged_rows\tk1_bytes"
-            "\tbudget\tretries")
+            "\tbudget\tretries\tnet_slabs\tnet_graph_slabs")
         assert len(rows) == 4  # three 10 kb chunks
         assert sum(int(r.split("\t")[3]) for r in rows[1:]) \
             == stats.candidates > 0

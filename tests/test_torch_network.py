@@ -239,3 +239,204 @@ def test_network_on_card_matches_cpu():
     x, _, _ = _windows(np.random.default_rng(6), 300, 18)
     np.testing.assert_allclose(fwd(gpu, x).cpu().numpy(),
                                fwd(cpu, x).numpy(), rtol=0, atol=1e-4)
+
+
+# --------------------------------------------------------------- graph slabs
+# The graph policy (PileupNet._slab_graphs) reads the input's device, dtype
+# and requires_grad and the weights' devices: a stand-in input on "cuda"
+# and stand-in weights there exercise each rule without a card.
+
+class _FakeWeight:
+    def __init__(self, i, requires_grad=False):
+        self.device = torch.device("cuda", 0)
+        self.requires_grad = requires_grad
+        self._ptr = 4096 * (i + 1)
+
+    def data_ptr(self):
+        return self._ptr
+
+
+def _fake_x(dtype=torch.float32, requires_grad=False):
+    from types import SimpleNamespace
+    return SimpleNamespace(device=torch.device("cuda", 0), dtype=dtype,
+                           requires_grad=requires_grad)
+
+
+def _on_fake_card(net, requires_grad=False):
+    """net with stand-in weights on "cuda" (a mesh shell has none of its
+    own: it gets some too, so only its layers can refuse it)."""
+    net.parameters = lambda: [_FakeWeight(i, requires_grad)
+                              for i in range(20)]
+    return net
+
+
+def _mesh_shell():
+    from clair3_rna_torch.parallel.mesh import make_mesh, shard_params
+    net = tnet.init_params(3, device="cpu")
+    mesh = make_mesh(devices=[torch.device("cpu")] * 2, tp=2)
+    return shard_params(net, mesh).row_nets[0]
+
+
+GRAPH_CASES = {
+    # case -> (module, input, grad enabled, graphs expected)
+    "plain_on_card": (lambda: _on_fake_card(tnet.init_params(3, device="cpu")),
+                      _fake_x, False, True),
+    "plain_on_card_grad_on_frozen_weights": (
+        lambda: _on_fake_card(tnet.init_params(3, device="cpu")), _fake_x,
+        True, True),
+    "cpu_tensor": (lambda: tnet.init_params(3, device="cpu"),
+                   lambda: torch.zeros((64, 33, 18)), False, False),
+    "weights_off_the_input_device": (
+        lambda: tnet.init_params(3, device="cpu"), _fake_x, False, False),
+    "autograd_records_the_weights": (
+        lambda: _on_fake_card(tnet.init_params(3, device="cpu"), True),
+        _fake_x, True, False),
+    "autograd_records_the_input": (
+        lambda: _on_fake_card(tnet.init_params(3, device="cpu")),
+        lambda: _fake_x(requires_grad=True), True, False),
+    "half_input": (lambda: _on_fake_card(tnet.init_params(3, device="cpu")),
+                   lambda: _fake_x(torch.float16), False, False),
+    "mesh_shell": (_mesh_shell, _fake_x, False, False),
+    "mesh_shell_with_weights_on_card": (
+        lambda: _on_fake_card(_mesh_shell()), _fake_x, False, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graph_policy(case):
+    """Slabs replay a graph only for float32 on a card, autograd not
+    recording, and a plain PileupNet whose weights lie on the input's
+    device: not on the CPU, nor for a mesh shell (its layers are not the
+    plain ones) nor while autograd records."""
+    make_net, make_x, grad, want = GRAPH_CASES[case]
+    net = make_net()
+    with torch.set_grad_enabled(grad):
+        graphs = net._slab_graphs(make_x())
+    assert (graphs is not None) == want
+    if want:  # one slot store a module, kept outside its state
+        assert net._slab_graphs(make_x()) is graphs
+        assert not any("graph" in k for k in vars(net))
+
+
+def test_train_never_consults_graphs_and_cpu_slabs_count(monkeypatch):
+    """forward(train=True) never asks for graph slots, inference does (and
+    gets none on the CPU); inside a chunk's record the CPU slabs count as
+    slabs, none replayed; outside one nothing is counted; deepcopy (the
+    training snapshot) works after inference."""
+    import copy
+
+    from clair3_rna_torch.caller import spans
+    net = tnet.init_params(3, device="cpu")
+    asked = []
+    real = tnet.PileupNet._slab_graphs
+
+    def spy(self, x):
+        asked.append(real(self, x))
+        return asked[-1]
+    monkeypatch.setattr(tnet.PileupNet, "_slab_graphs", spy)
+    x = torch.zeros((130, 33, 18))
+    with torch.inference_mode():
+        with spans.Chunk() as rec:
+            net(x, train=True)
+            assert rec.counters == {} and asked == []
+            net(x)
+        net(x)
+    assert rec.counters == {"net_slabs": 3, "net_graph_slabs": 0}
+    assert asked == [None, None]
+    copy.deepcopy(net)
+
+
+def _graph_net(channels):
+    return tnet.init_params(5, phased=channels == 30, device="cuda")
+
+
+def _eager(net, x):
+    """The slabs of x run eagerly, as the graph-free forward did."""
+    slab = tnet.NET_SLAB["cuda"]
+    n = x.shape[0]
+    n_pad = -(-n // slab) * slab
+    xp = torch.cat([x, x.new_zeros((n_pad - n,) + tuple(x.shape[1:]))])
+    return torch.cat([net._slab(xp[lo:lo + slab])
+                      for lo in range(0, n_pad, slab)])[:n]
+
+
+def _card_x(seed, n, channels):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-40, 60, (n, 33, channels))
+                            .astype(np.float32)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [18, 30])
+def test_graph_slabs_bit_identical_on_card(channels):
+    """The first call runs eagerly, the second captures, the rest replay:
+    every output equals the eager slabs bit for bit, at one slab and then
+    at three (8,292 rows, all replayed), and the counters say so."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from clair3_rna_torch.caller import spans
+    net = _graph_net(channels)
+    for n in (3000, 8292):
+        x = _card_x(n, n, channels)
+        with torch.inference_mode():
+            want = _eager(net, x)
+            for k in range(4):
+                with spans.Chunk() as rec:
+                    got = net(x)
+                assert torch.equal(got, want), (n, k)
+                slabs = -(-n // tnet.NET_SLAB["cuda"])
+                # only the key's very first slab ran eagerly
+                assert rec.counters == {
+                    "net_slabs": slabs,
+                    "net_graph_slabs": 0 if (n, k) == (3000, 0) else slabs}
+
+
+@pytest.mark.cuda
+def test_graph_slabs_two_threads_on_card():
+    """Two threads replaying at once each get their own rows, equal to the
+    eager slabs, from at most GRAPH_SLOTS slots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from concurrent.futures import ThreadPoolExecutor
+    net = _graph_net(18)
+    xs = [_card_x(100 + i, 4096, 18) for i in range(2)]
+    with torch.inference_mode():
+        want = [_eager(net, x) for x in xs]
+        net(xs[0])
+        net(xs[0])
+
+    def replay(i):
+        with torch.inference_mode():
+            return [net(xs[i]) for _ in range(20)]
+
+    with ThreadPoolExecutor(2) as pool:
+        outs = list(pool.map(replay, range(2)))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(o, want[i]) for o in outs[i]), i
+    graphs = tnet._GRAPHS[net]
+    key = (xs[0].device, 18, tnet.NET_SLAB["cuda"])
+    assert 1 <= graphs._made[key] <= tnet.GRAPH_SLOTS
+
+
+@pytest.mark.cuda
+def test_graph_output_not_aliased_on_card():
+    """An output returned earlier is unchanged after later replays, and
+    shares no memory with a slot's static output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    net = _graph_net(18)
+    a, b = _card_x(1, 2000, 18), _card_x(2, 2000, 18)
+    with torch.inference_mode():
+        net(a)
+        first = net(a)
+        kept = first.clone()
+        for _ in range(3):
+            net(b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, kept)
+    key = (a.device, 18, tnet.NET_SLAB["cuda"])
+    for slot in tnet._GRAPHS[net]._free[key]:
+        lo = slot.out.untyped_storage().data_ptr()
+        hi = lo + slot.out.untyped_storage().nbytes()
+        assert not lo <= first.data_ptr() < hi

@@ -23,7 +23,7 @@ torch.set_num_threads(1)
 HEADER = ("contig\tstart\tend\tcandidates\tbuild_seconds\troute\tworker"
           "\tstarttime\tdonetime\twait_s\textract_s\tstage_s\th2d_s"
           "\tlaunch_s\tsync_s\tescape_s\tdecode_s\tstaged_rows\tk1_bytes"
-          "\tbudget\tretries")
+          "\tbudget\tretries\tnet_slabs\tnet_graph_slabs")
 STAGES = ("extract_s", "stage_s", "h2d_s", "launch_s", "sync_s", "escape_s",
           "decode_s")
 CHUNK = 10_000
@@ -153,6 +153,27 @@ def test_joblog_header_routes_and_candidates(runs):
         == {"fused"}
 
 
+def test_net_slab_counters(runs):
+    """A fused-attempted chunk's build ran network slabs (64 rows on the
+    CPU: its final pass alone runs budget / 64), none replayed from a
+    graph on the CPU; a host chunk's batches run on the main thread and
+    count none. The benchmark's reader of the two columns reads 0% from
+    the fused runs and nothing from the host run."""
+    from callbench.run import metric_reader
+    read = metric_reader("net.graph_slab_pct")
+    for name in ("host", "fused", "splice"):
+        rows = _rows(runs[f"{name}_on"]["joblog"])[1]
+        for r in rows:
+            assert int(r["net_graph_slabs"]) == 0, r
+            if r["route"] == "host":
+                assert int(r["net_slabs"]) == 0, r
+            else:
+                assert int(r["net_slabs"]) >= max(1, int(r["budget"] or 0)
+                                                  // 64), r
+        share = read({"jobs": [{"joblog_rows": [rows]}]})
+        assert share == (None if name == "host" else 0.0), name
+
+
 def test_fused_stages_within_build_seconds(runs):
     """A fused chunk's seven stage spans lie inside its build: their sum is
     at most build_seconds (+1 ms for the column's rounding)."""
@@ -239,7 +260,9 @@ def test_span_records_nest_and_count():
         pass
     assert rec.thread == threading.current_thread().name
     assert set(rec.totals) == {"chunk", "chunk.stage"}
-    assert rec.seconds("chunk.stage") == inner.seconds + again.seconds
+    # in integer ns: the sum of two float seconds may round off the total's
+    assert rec.totals["chunk.stage"] == (inner.end_ns - inner.start_ns) \
+        + (again.end_ns - again.start_ns)
     assert whole.start_ns <= inner.start_ns <= inner.end_ns <= whole.end_ns
     assert rec.seconds("chunk") == whole.seconds >= rec.seconds("chunk.stage")
     assert rec.counters == {"staged_rows": 7, "retries": 2}
