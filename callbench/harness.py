@@ -4,14 +4,18 @@ check of what the window produced.
 A cell names a configuration (callbench/configs/<config>.json) and a
 traffic mix (callbench/traffic/<traffic>.json), and has a file of its own,
 callbench/cells/<cell>.json: the program's `call` options it runs with and
-the limits of its check. All are found by the names in BENCHMARK.json, so a
-new cell is new files and entries. The window drives the program's calling
-entry, clair3_rna_torch.caller.pipeline.run_calling, one contig a job, back
+the limits of its check. What a configuration's job runs and how its output
+is checked sit beside its JSON in callbench/configs/<config>.py, as three
+functions: load(cell) (weights and settings, timed in set-up), job(cell,
+contig, out_dir, joblog) (one job of one contig) and check(cell, device)
+(the plain reference's numbers). All are found by the names in
+BENCHMARK.json, so a new cell, and a new configuration, is new files and
+entries. The window drives the configuration's job, one contig a job, back
 to back (a closed loop of one caller, as one shard of a sharded `call`
-processes contigs). Every job writes into a fresh directory with resume
-off.
+processes contigs). Every job writes into a fresh directory.
 """
 
+import importlib.util
 import json
 import os
 import shutil
@@ -45,8 +49,24 @@ def load_cell(workload, root=ROOT):
     return cell, cfg, traffic, bench
 
 
+def file_module(path, name):
+    """The Python file at `path`, imported as module `name`."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def config_module(config, root=ROOT):
+    """callbench/configs/<config>.py, with its load, job and check."""
+    path = os.path.join(root, "callbench", "configs", config + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"configuration {config!r} has no {path}")
+    return file_module(path, "callbench_config_" + config)
+
+
 def cell_file(workload, root=ROOT):
-    """callbench/cells/<workload>.json: {"call": run_calling options,
+    """callbench/cells/<workload>.json: {"call": the program's `call` options,
     "limits": {number: limit}, ...}."""
     with open(os.path.join(root, "callbench", "cells", workload + ".json")) as f:
         return json.load(f)
@@ -150,6 +170,7 @@ class Cell:
         self.cell, self.cfg, self.traffic, self.bench = load_cell(workload,
                                                                   root)
         self.call = cell_file(workload, root)["call"]
+        self.config_module = config_module(self.cell["config"], root)
         self.seed = int(seed)
         self.device = device
         self.root = root
@@ -157,6 +178,7 @@ class Cell:
         self.parts = {}
         self.jobs = []
         self.tmp = None
+        self.state = None
 
     # ---------------------------------------------------------------- set-up
     def setup(self):
@@ -182,7 +204,7 @@ class Cell:
             self._libraries()
             self.parts["libraries_s"] = time.perf_counter() - t
             t = time.perf_counter()
-            self._weights()
+            self.state = self.config_module.load(self)
             self.parts["weights_s"] = time.perf_counter() - t
             t = time.perf_counter()
             self.contigs = [f.result() for f in futs]
@@ -213,23 +235,6 @@ class Cell:
             torch.zeros(1, device=self.device)
         get_library()
 
-    def _weights(self):
-        from clair3_rna_torch.caller.decode import CallConfig
-        from clair3_rna_torch.config import PileupConfig
-        from clair3_rna_torch.models.network import make_wire_forward_fn
-        from clair3_rna_torch.models.params_io import (load_params,
-                                                       params_from_numpy)
-        c = self.cfg
-        self.pileup_cfg = PileupConfig.for_platform(
-            c["preset"], min_mq=c["min_mq"], min_bq=c["min_bq"],
-            min_coverage=c["min_coverage"], snp_min_af=c["snp_min_af"],
-            indel_min_af=c["indel_min_af"], batch_size=c["batch_size"])
-        self.call_cfg = CallConfig()
-        self.params = params_from_numpy(
-            load_params(os.path.join(self.root, c["weights"])),
-            device=self.device)
-        _, self.forward = make_wire_forward_fn()
-
     def _sync(self):
         import torch
         if torch.device(self.device).type == "cuda":
@@ -237,24 +242,14 @@ class Cell:
 
     # ------------------------------------------------------------------ jobs
     def job(self, contig, tag, joblog=False):
-        """One `call` of one contig into a fresh directory -> record."""
-        from clair3_rna_torch.caller.pipeline import run_calling
+        """The configuration's job of one contig in a fresh directory ->
+        record."""
         out = os.path.join(self.tmp, "jobs", tag)
         shutil.rmtree(out, ignore_errors=True)
         os.makedirs(out)
-        log = os.path.join(out, "joblog.tsv") if joblog else None
-        outputs, stats = run_calling(
-            contig["bam"], contig["fasta"], os.path.join(out, "output.vcf"),
-            cfg=self.pileup_cfg, call_cfg=self.call_cfg, params=self.params,
-            forward=self.forward, contigs=[contig["name"]],
-            cmd_line="callbench", compress=True, progress=False,
-            manifest_dir=os.path.join(out, "tmp"), resume=False,
-            joblog=log, device=self.device, **self.call)
+        rec = self.config_module.job(self, contig, out, joblog)
         self._sync()
-        return {"contig": contig["name"], "read_bases": contig["read_bases"],
-                "vcf": outputs[0], "joblog": [log] if log else [],
-                "stats": [_stats_dict(stats)],
-                "network_rows": {self.cfg["channels"]: stats.candidates}}
+        return rec
 
     def job_order(self):
         """Contig of each window job: every round visits each contig once,
@@ -321,7 +316,8 @@ class Cell:
             shutil.rmtree(self.tmp, ignore_errors=True)
 
 
-def _stats_dict(stats):
+def stats_dict(stats):
+    """A pass's CallStats as the record's plain dict."""
     return {"build_s": stats.build_s, "infer_s": stats.infer_s,
             "decode_s": stats.decode_s, "candidates": stats.candidates,
             "decoded": stats.decoded, "rows": stats.rows,
@@ -331,7 +327,7 @@ def _stats_dict(stats):
 
 
 def read_joblog(path):
-    """Per-chunk rows of a run_calling joblog."""
+    """Per-chunk rows of a pass's joblog (the program's per-chunk TSV)."""
     rows = []
     with open(path) as f:
         head = f.readline().rstrip("\n").split("\t")

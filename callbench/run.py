@@ -5,13 +5,21 @@
 
 Set-up (timed as setup_s, from the process's start): the program's
 libraries (built into its _build/ directories on a checkout's first run),
-the configuration's weights onto the card, the traffic's contigs simulated
-from the seed in child processes under TMPDIR, each BAM's index, and the
-warm-up jobs. Then the window: `call`s of one contig each, back to back,
-for --seconds (the job running at the close finishes inside the window).
-With --trace 1, one more job runs under torch.profiler after the window.
-Last, the check: the plain reference (callbench/reference) is computed
-from the seed and compared with what the window's jobs produced.
+the configuration's load (its weights onto the card), the traffic's
+contigs simulated from the seed in child processes under TMPDIR, each
+BAM's index, and the warm-up jobs. Then the window: the configuration's
+jobs of one contig each, back to back, for --seconds (the job running at
+the close finishes inside the window). With --trace 1, one more job runs
+under torch.profiler after the window. Last, the configuration's check:
+the plain reference (callbench/reference) is computed from the seed and
+compared with what the window's jobs produced.
+
+A cell, its configuration, traffic and per-layer metrics are found by the
+names in BENCHMARK.json: callbench/cells/<cell>.json,
+callbench/configs/<config>.json with callbench/configs/<config>.py (its
+load, job and check), callbench/traffic/<traffic>.json and
+callbench/metrics/<metric>.py. So a new cell, and a new configuration, is
+new files and entries.
 
 The last line of standard output is one JSON object: correct, attempted,
 failed, metrics (the cell's end-to-end metrics with --trace 0, its
@@ -22,7 +30,6 @@ with fewer cards than the cell asks for, it prints no result and exits 3.
 
 import argparse
 import gc
-import importlib.util
 import json
 import os
 import sys
@@ -47,34 +54,11 @@ def _cache_env(root):
 def metric_reader(name, root=ROOT):
     """The read(ctx) function of callbench/metrics/<name>.py."""
     path = os.path.join(root, "callbench", "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location("callbench_metric_" + name,
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return harness.file_module(path, "callbench_metric_" + name).read
 
 
 def limits_for(workload, root=ROOT):
     return harness.cell_file(workload, root)["limits"]
-
-
-def _check(cell, device):
-    """The reference's numbers for what the window's jobs produced, and the
-    seconds its pileups took in their children."""
-    from callbench.reference.judge import all_candidates, judge, vcf_body
-    from callbench.reference.network import load_weights, probabilities
-
-    cfg, jobs = cell.cfg, cell.jobs
-    t = time.perf_counter()
-    cands = all_candidates(cell.traffic, cell.seed, cfg, range(len(cell.contigs)))
-    secs = {"pileup_s": time.perf_counter() - t}
-    by_name = {c.contig: c for c in cands.values()}
-    w = load_weights(os.path.join(cell.root, cfg["weights"]))
-    ref = {n: probabilities(w, c.tensors, device) for n, c in by_name.items()}
-    caps = [(j["contig"],) + j["captured"][cfg["channels"]] for j in jobs
-            if cfg["channels"] in j.get("captured", {})]
-    bodies = [(j["contig"], vcf_body(j["vcf"])) for j in jobs]
-    return judge(by_name, ref, caps, bodies, cfg["qual_cutoff"]), secs
 
 
 def measure(workload, seed, seconds, trace, device="cuda", root=ROOT):
@@ -106,13 +90,13 @@ def measure(workload, seed, seconds, trace, device="cuda", root=ROOT):
             job["joblog_rows"] = [harness.read_joblog(p) for p in job["joblog"]]
             if "captured" in job:
                 job["captured"] = harness.host_rows(job["captured"])
-        cell.params = None
+        cell.state = None
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
 
         t = time.perf_counter()
-        numbers, check_parts = _check(cell, device)
+        numbers, check_parts = cell.config_module.check(cell, device)
         check_s = time.perf_counter() - t
         limits = limits_for(workload, root)
         checks = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items()}

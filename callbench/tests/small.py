@@ -1,5 +1,6 @@
 """A small traffic mix for the CPU tests (the cells' shape on short
-contigs), and a copy of the benchmark with one more cell in it."""
+contigs), and a copy of the benchmark with one more cell, or one more
+configuration, in it."""
 
 import json
 import os
@@ -38,5 +39,24 @@ def copy_with_cell(tmp, root, workload, config, traffic, call, limits):
         b = json.load(f)
     b["workloads"].append({"name": workload, "config": config,
                            "traffic": traffic_name, "chips": 1, "why": "small"})
+    with open(path, "w") as f:
+        json.dump(b, f)
+
+
+def add_config(tmp, name, cfg, module):
+    """callbench/configs/<name>.json (cfg), its configs entry and, where
+    `module` is a path, callbench/configs/<name>.py (a copy of it) in the
+    copy at tmp."""
+    d = os.path.join(tmp, "callbench", "configs")
+    with open(os.path.join(d, name + ".json"), "w") as f:
+        json.dump(dict(cfg, name=name), f)
+    if module is not None:
+        shutil.copy(module, os.path.join(d, name + ".py"))
+    path = os.path.join(tmp, "BENCHMARK.json")
+    with open(path) as f:
+        b = json.load(f)
+    b["configs"].append({"name": name, "source": cfg["source"],
+                         "file": f"callbench/configs/{name}.json",
+                         "reduced": [], "why": "small"})
     with open(path, "w") as f:
         json.dump(b, f)

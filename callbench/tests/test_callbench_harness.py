@@ -1,7 +1,8 @@
-"""The harness on the CPU: the contract's names and files, a cell added by
-files alone (driven through a whole run), the metric readers, the import
-guard, the refusal without a card, and faults planted in the timed path
-coming out as not correct."""
+"""The harness on the CPU: the contract's names and files, a cell and a
+configuration (the phased re-call, 30 channels) added by files alone (each
+driven through a whole run), the metric readers, the import guard, the
+refusal without a card, and faults planted in the timed path coming out as
+not correct."""
 
 import ast
 import hashlib
@@ -14,10 +15,11 @@ import types
 
 import pytest
 
-from callbench import run
+from callbench import harness, run
 from callbench.lib.guard import forbidden_modules
 from callbench.lib.trace import device_activity
-from callbench.tests.small import CALL, LIMITS, SKEW, copy_with_cell
+from callbench.tests.small import (CALL, LIMITS, SKEW, add_config,
+                                   copy_with_cell)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -60,7 +62,7 @@ def test_names_units_and_files():
 
 def test_weights_match_their_manifest():
     d = os.path.join(ROOT, "callbench", "configs")
-    for name in sorted(os.listdir(d)):
+    for name in sorted(n for n in os.listdir(d) if n.endswith(".json")):
         with open(os.path.join(d, name)) as f:
             cfg = json.load(f)
         assert cfg["name"] + ".json" == name
@@ -89,6 +91,72 @@ def test_new_cell_from_files_alone_runs_correct(small_root):
     assert r["metrics"]["mbases_per_s"]["value"] > 0
     assert list(r)[-1] == "checks"
     assert before == {p: open(os.path.join(ROOT, p), "rb").read() for p in before}
+
+
+def _tree(root):
+    """sha256 of BENCHMARK.json and of every file under callbench/."""
+    paths = [os.path.join(root, "BENCHMARK.json")]
+    for d, dirs, files in os.walk(os.path.join(root, "callbench")):
+        dirs[:] = [x for x in dirs if x != "__pycache__"]
+        paths += [os.path.join(d, f) for f in files]
+    return {p: hashlib.sha256(open(p, "rb").read()).hexdigest() for p in paths}
+
+
+PHASED = {"other_channel_rows": 0, "jobs_without_phased_rows": 0,
+          "haplotype_channels_empty": 0}
+
+
+def _phased_copy(tmp, module):
+    """A copy of the benchmark with configuration cX (30 channels, the
+    phased re-call of callbench/tests/phased_recall.py when `module`) and
+    its cell cX.hp_skew on HP-tagged reads: new files and entries alone."""
+    copy_with_cell(tmp, ROOT, "cX.hp_skew", "cX", dict(SKEW, hp_tags=True),
+                   CALL, PHASED)
+    with open(os.path.join(ROOT, "callbench", "configs", "c18_ont.json")) as f:
+        cfg = json.load(f)
+    for key in ("weights", "weights_sha256", "weights_recipe",
+                "weights_trainer"):
+        cfg.pop(key)
+    add_config(tmp, "cX", dict(cfg, channels=30, model="phased re-call"),
+               os.path.join(ROOT, "callbench", "tests", "phased_recall.py")
+               if module else None)
+
+
+def test_new_configuration_from_files_alone_runs_correct(tmp_path,
+                                                          monkeypatch):
+    before = _tree(ROOT)
+    _phased_copy(str(tmp_path), module=True)
+    keys = []
+    real = harness.host_rows
+
+    def host_rows(rows):
+        out = real(rows)
+        keys.append(sorted(out))
+        return out
+    monkeypatch.setattr(harness, "host_rows", host_rows)
+    r = run.measure("cX.hp_skew", 2**31 + 8, 1.0, False, device="cpu",
+                    root=str(tmp_path))
+    assert r["correct"] and r["attempted"] >= 1 and r["failed"] == 0
+    assert set(r["checks"]) == set(PHASED)
+    assert all(c["value"] == 0 for c in r["checks"].values()), r["checks"]
+    assert keys and all(k == [30] for k in keys), keys
+    assert r["metrics"]["mbases_per_s"]["value"] > 0
+    assert _tree(ROOT) == before
+
+
+def test_configuration_without_its_module_fails_at_load(tmp_path):
+    _phased_copy(str(tmp_path), module=False)
+    path = os.path.join(str(tmp_path), "callbench", "configs", "cX.py")
+    with pytest.raises(FileNotFoundError, match=re.escape(path)):
+        run.measure("cX.hp_skew", 1, 1.0, False, device="cpu",
+                    root=str(tmp_path))
+
+
+def test_every_configuration_has_load_job_and_check():
+    for c in _bench()["configs"]:
+        mod = harness.config_module(c["name"])
+        for fn in ("load", "job", "check"):
+            assert callable(getattr(mod, fn, None)), (c["name"], fn)
 
 
 def _answer_altered(monkeypatch):
@@ -177,27 +245,50 @@ def test_import_guard_compares_whole_top_level_names():
     assert forbidden_modules(["clair3_rna_torch", "optaxx"]) == []
 
 
+def _imports_in(nodes):
+    for top in nodes:
+        for node in ast.walk(top):
+            if isinstance(node, ast.Import):
+                yield from (a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                yield node.module
+
+
 def _imports_of(path):
-    tree = ast.parse(open(path).read())
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.module:
-            yield node.module
+    return _imports_in([ast.parse(open(path).read())])
+
+
+def _check_imports(path):
+    """The imports a configuration module's check can see: the module's own
+    (outside any function) and those inside check."""
+    body = ast.parse(open(path).read()).body
+    return _imports_in(
+        n for n in body if not isinstance(n, (ast.FunctionDef, ast.ClassDef))
+        or (isinstance(n, ast.FunctionDef) and n.name == "check"))
 
 
 def test_reference_and_generator_import_nothing_of_the_program():
+    program = {"clair3_rna_torch", "clair3_rna_tpu", "jax", "flax", "optax"}
     for sub in ("reference", "gen"):
         d = os.path.join(ROOT, "callbench", sub)
         for name in os.listdir(d):
             if name.endswith(".py"):
                 tops = {m.split(".")[0] for m in _imports_of(os.path.join(d, name))}
-                assert not tops & {"clair3_rna_torch", "clair3_rna_tpu", "jax",
-                                   "flax", "optax"}, (name, tops)
+                assert not tops & program, (name, tops)
+    d = os.path.join(ROOT, "callbench", "configs")
+    configs = sorted(n[:-3] for n in os.listdir(d) if n.endswith(".py"))
+    assert configs
+    for name in configs:
+        tops = {m.split(".")[0]
+                for m in _check_imports(os.path.join(d, name + ".py"))}
+        assert not tops & program, (name, tops)
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import callbench.gen, callbench.gen.bam, callbench.reference.judge, "
             "callbench.reference.network, callbench.reference.pileup\n"
-            "print(sorted({m.split('.')[0] for m in sys.modules}))" % ROOT)
+            "from callbench.harness import config_module\n"
+            "for name in %r: config_module(name)\n"
+            "print(sorted({m.split('.')[0] for m in sys.modules}))"
+            % (ROOT, configs))
     out = subprocess.run([sys.executable, "-c", code], check=True,
                          capture_output=True, text=True).stdout
     assert "clair3_rna_torch" not in out and "'jax'" not in out
