@@ -12,6 +12,7 @@ import logging
 import os
 
 from clair3_rna_torch import config, resolve_device
+from clair3_rna_torch.caller import spans
 from clair3_rna_torch.caller.decode import CallConfig
 from clair3_rna_torch.caller.pipeline import run_calling
 from clair3_rna_torch.io.bam import BamReader
@@ -246,24 +247,59 @@ def run_full_calling(args, cfg, call_cfg: CallConfig):
 
 
 def run_phasing_pass(args, cfg, call_cfg, contigs, first_pass_vcf, device):
-    """Second pass: phase first-pass hets, haplotag reads, re-call with the
-    30-channel phasing model on `device` (run_clair3_rna:729-852) ->
-    (output paths, the re-call's CallStats with phase_s set).
+    """Second pass of `call --enable_phasing_model` on `device`
+    (run_clair3_rna:729-852): the phasing model's weights loaded once, then
+    run_second_pass -> (output paths, the re-call's CallStats)."""
+    mesh, phased_cfg = _mesh_for(args, cfg.with_(phased=True), device)
+    params, forward = load_model(args.phased_model_path, phased=True,
+                                 device=device, mesh=mesh)
+    rediportal_path = args.readiportal_source_fn \
+        if args.tag_variant_using_readiportal else None
+    joblog = getattr(args, "joblog", None)
+    return run_second_pass(
+        args.bam_fn, args.ref_fn, first_pass_vcf, args.output_dir,
+        cfg=phased_cfg, call_cfg=call_cfg, params=params, forward=forward,
+        contigs=contigs, prefix=getattr(args, "output_prefix", None),
+        phaser=getattr(args, "phaser", "builtin"),
+        whatshap=getattr(args, "whatshap", "whatshap"),
+        longphase=getattr(args, "longphase", "longphase"),
+        platform=getattr(args, "platform", "ont"),
+        resume=getattr(args, "resume", False), chunk_size=args.chunk_size,
+        rediportal_path=rediportal_path, sample_name=args.sample_name,
+        compress=not args.no_compress,
+        joblog=(joblog + ".phased") if joblog else None,
+        pileup_backend=getattr(args, "pileup_backend", None))
+
+
+def run_second_pass(bam_path, ref_path, first_pass_vcf, output_dir, *, cfg,
+                    call_cfg, params, forward, contigs, prefix=None,
+                    phaser="builtin", whatshap="whatshap",
+                    longphase="longphase", platform="ont", resume=False,
+                    **calling):
+    """The phased second pass with the phasing model's weights already
+    loaded (params/forward): phase the first pass's hets and haplotag the
+    reads into <output_dir>/phased_tagged.bam, then re-call every contig
+    at 30 channels (cfg with phased=True) on the tagged BAM into
+    <prefix>_enable_phasing.vcf, its chunk manifests in
+    <output_dir>/tmp_phased. `calling` holds run_calling's other options.
+    -> (output paths, the re-call's CallStats), with phase_s (the
+    phase + haplotag step's seconds) and phase (its spans' seconds and
+    counters, phasing/pipeline.stage_totals; None where it was skipped).
 
     Resumable at two grains, matching the reference's step 3-6 --skip_steps
-    (run_clair3_rna:855-867): the phase+haplotag step is skipped when its
-    tagged BAM and completion marker (stamped with the first-pass VCF's
-    identity) already exist, and the re-call itself checkpoints per chunk
-    into <output_dir>/tmp_phased exactly like the first pass."""
+    (run_clair3_rna:855-867): with `resume` the phase+haplotag step is
+    skipped when its tagged BAM and completion marker (<tagged BAM>.done.json,
+    stamped with the first-pass VCF's identity) already exist, and the
+    re-call itself checkpoints per chunk into tmp_phased exactly like the
+    first pass."""
     import gzip
     import hashlib
     import json
     import time
 
-    from clair3_rna_torch.phasing.pipeline import phase_and_haplotag
+    from clair3_rna_torch.phasing.pipeline import (phase_and_haplotag,
+                                                   stage_totals)
 
-    tagged_bam = os.path.join(args.output_dir, "phased_tagged.bam")
-    marker = tagged_bam + ".done.json"
     # identity = the first-pass VCF's BODY content (the header carries
     # ##cmdline, which legitimately differs between a run and its resume;
     # a resume regenerates byte-identical rows, so the body hash is stable
@@ -277,11 +313,13 @@ def run_phasing_pass(args, cfg, call_cfg, contigs, first_pass_vcf, device):
     stamp = {
         "first_pass_vcf": os.path.abspath(first_pass_vcf),
         "vcf_body_sha1": body.hexdigest(),
-        "phaser": getattr(args, "phaser", "builtin"),
+        "phaser": phaser,
         "contigs": hashlib.sha1(
             ",".join(contigs).encode()).hexdigest()[:12],
     }
-    resume = getattr(args, "resume", False)
+    os.makedirs(output_dir, exist_ok=True)
+    tagged_bam = os.path.join(output_dir, "phased_tagged.bam")
+    marker = tagged_bam + ".done.json"
     done = None
     if resume and os.path.exists(marker) and os.path.exists(tagged_bam):
         try:
@@ -290,44 +328,33 @@ def run_phasing_pass(args, cfg, call_cfg, contigs, first_pass_vcf, device):
         except (OSError, ValueError):
             done = None
     t0 = time.perf_counter()
+    phase = None
     if done == stamp:
         logger.info("[INFO] resume: phase+haplotag step restored "
                     "(tagged BAM %s up to date)", tagged_bam)
     else:
+        record = spans.Chunk()
         phase_and_haplotag(
-            args.bam_fn, args.ref_fn, first_pass_vcf, tagged_bam,
-            phaser=getattr(args, "phaser", "builtin"),
-            whatshap=getattr(args, "whatshap", "whatshap"),
-            longphase=getattr(args, "longphase", "longphase"),
-            platform=getattr(args, "platform", "ont"),
-            contigs=contigs)
+            bam_path, ref_path, first_pass_vcf, tagged_bam, phaser=phaser,
+            whatshap=whatshap, longphase=longphase, platform=platform,
+            contigs=contigs, record=record)
+        phase = stage_totals(record)
         tmp = marker + ".tmp"
         with open(tmp, "w") as f:
             json.dump(stamp, f)
         os.replace(tmp, marker)  # atomic: BAM is complete when marker lands
     phase_s = time.perf_counter() - t0
-    phased_cfg = cfg.with_(phased=True)
-    mesh, phased_cfg = _mesh_for(args, phased_cfg, device)
-    params, forward = load_model(args.phased_model_path, phased=True,
-                                 device=device, mesh=mesh)
-    prefix = getattr(args, "output_prefix", None) or "output"
-    output_path = os.path.join(args.output_dir, prefix + "_enable_phasing.vcf")
-    rediportal_path = args.readiportal_source_fn \
-        if args.tag_variant_using_readiportal else None
-    joblog = getattr(args, "joblog", None)
+    prefix = prefix or "output"
+    output_path = os.path.join(output_dir, prefix + "_enable_phasing.vcf")
     outputs, stats = run_calling(
-        tagged_bam, args.ref_fn, output_path,
-        cfg=phased_cfg, call_cfg=call_cfg, params=params,
-        forward=forward, contigs=contigs, chunk_size=args.chunk_size,
-        rediportal_path=rediportal_path,
+        tagged_bam, ref_path, output_path, cfg=cfg.with_(phased=True),
+        call_cfg=call_cfg, params=params, forward=forward, contigs=contigs,
         output_no_tagging_path=os.path.join(
-            args.output_dir, prefix + "_no_tagging_enable_phasing.vcf"),
-        sample_name=args.sample_name, compress=not args.no_compress,
-        manifest_dir=os.path.join(args.output_dir, "tmp_phased"),
-        resume=resume,
-        joblog=(joblog + ".phased") if joblog else None,
-        pileup_backend=getattr(args, "pileup_backend", None))
+            output_dir, prefix + "_no_tagging_enable_phasing.vcf"),
+        manifest_dir=os.path.join(output_dir, "tmp_phased"), resume=resume,
+        **calling)
     stats.phase_s = phase_s
+    stats.phase = phase
     logger.info("[INFO] phasing-model calling finished: %s (phase+haplotag "
                 "%.3f s, re-call %.3f s)", ", ".join(outputs), phase_s,
                 stats.wall_s)

@@ -136,10 +136,12 @@ class CallStats:
     fused: dict | None = None  # fused-path telemetry (renorm/hatch/fallback)
     routing: dict | None = None  # hybrid per-chunk routing telemetry
     wall_s: float = 0.0        # run_calling's wall (host clock)
-    # the phased second pass's own stats (caller/driver.run_phasing_pass),
-    # with its phase+haplotag seconds in phase_s; None without that pass
+    # the phased second pass's own stats (caller/driver.run_second_pass),
+    # with its phase+haplotag seconds in phase_s and, where that step ran,
+    # its spans' seconds and counters in phase; None without that pass
     phased: "CallStats | None" = None
     phase_s: float = 0.0
+    phase: dict | None = None
 
 
 class _HostCopy:

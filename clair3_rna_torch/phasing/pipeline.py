@@ -6,10 +6,10 @@ Replaces `whatshap phase ... && whatshap haplotag` / `longphase phase/haplotag`
 
 import logging
 import os
-import time
 
 import numpy as np
 
+from clair3_rna_torch.caller import spans
 from clair3_rna_torch.io.bam import BamReader, BamWriter
 from clair3_rna_torch.io.vcf import VcfReader
 from clair3_rna_torch.phasing.phase import (
@@ -24,20 +24,58 @@ def phase_and_haplotag(bam_path: str, ref_path: str, vcf_path: str,
                        output_bam_path: str, contigs=None,
                        exclude_flags=2316, min_mq=5, phaser="builtin",
                        whatshap="whatshap", longphase="longphase",
-                       platform="ont"):
+                       platform="ont", record=None):
     """Tag reads with HP:i:1/2 from read-backed phasing of first-pass hets.
 
     phaser selects the engine: "builtin" (the in-framework pairwise-linkage
     phaser, default), or "whatshap"/"longphase" to delegate to an installed
     external phaser with the reference's exact invocations
     (run_clair3_rna:729-801). External mode requires the tool on PATH (or an
-    explicit path via whatshap=/longphase=)."""
-    if phaser in ("whatshap", "longphase"):
-        return _external_phase_and_haplotag(
-            bam_path, ref_path, vcf_path, output_bam_path, phaser,
-            whatshap if phaser == "whatshap" else longphase, platform)
-    if phaser != "builtin":
-        raise ValueError(f"unknown phaser: {phaser}")
+    explicit path via whatshap=/longphase=).
+
+    The stage's spans (caller/spans.py) go into `record`, a spans.Chunk
+    (a fresh one where none is given): `phase` around the whole stage and,
+    for the builtin phaser, inside it `phase.scan` (decode + het-site
+    alleles), `phase.link` (pairwise linkage + read votes) and
+    `phase.rewrite` (decode, tag, re-encode, deflate, the writer's close
+    and the tagged BAM's index), each summed over the contigs; and its
+    counters records_read, records_written, tagged_hp1, tagged_hp2,
+    het_sites and phase_blocks (blocks of two or more het sites).
+    `stage_totals(record)` reads them."""
+    rec = record if record is not None else spans.Chunk()
+    with rec, spans.span("phase"):
+        if phaser in ("whatshap", "longphase"):
+            return _external_phase_and_haplotag(
+                bam_path, ref_path, vcf_path, output_bam_path, phaser,
+                whatshap if phaser == "whatshap" else longphase, platform)
+        if phaser != "builtin":
+            raise ValueError(f"unknown phaser: {phaser}")
+        _builtin_phase_and_haplotag(bam_path, vcf_path, output_bam_path,
+                                    contigs, exclude_flags, min_mq)
+    c = rec.counters
+    logger.info("[INFO] haplotagged %d/%d reads -> %s (host seconds: scan "
+                "%.3f, phase %.3f, rewrite %.3f)",
+                c["tagged_hp1"] + c["tagged_hp2"], c["records_written"],
+                output_bam_path, rec.seconds("phase.scan"),
+                rec.seconds("phase.link"), rec.seconds("phase.rewrite"))
+    return output_bam_path
+
+
+def stage_totals(record):
+    """The phase + haplotag stage's record -> {phase_s, scan_s, link_s,
+    rewrite_s (span seconds), and its counters}."""
+    out = {k + "_s": record.seconds(name) for k, name in (
+        ("phase", "phase"), ("scan", "phase.scan"), ("link", "phase.link"),
+        ("rewrite", "phase.rewrite"))}
+    out.update(record.counters)
+    return out
+
+
+def _builtin_phase_and_haplotag(bam_path, vcf_path, output_bam_path,
+                                contigs, exclude_flags, min_mq):
+    """The builtin phaser's body, under the caller's record."""
+    from clair3_rna_torch.io.bai import build_index
+
     bam = BamReader(bam_path)
     vcf = VcfReader(vcf_path, show_ref=False)
     contigs = contigs or bam.references
@@ -46,60 +84,56 @@ def phase_and_haplotag(bam_path: str, ref_path: str, vcf_path: str,
     # 4 compression threads: the BGZF re-deflate dominated the serial rewrite
     writer = BamWriter(output_bam_path, refs, header_text=bam.header_text,
                        threads=4)
-    n_tagged = 0
-    n_total = 0
+    tagged = [0, 0, 0]  # records written, by HP (0: untagged)
+    n_read = n_sites = n_blocks = 0
     contig_set = set(contigs)
-    # host seconds of the three stages, logged for the phased pass's cost:
-    # scan (decode + het-site alleles), phase (linkage + read votes),
-    # rewrite (decode + re-encode + deflate)
-    secs = {"scan": 0.0, "phase": 0.0, "rewrite": 0.0}
+    rewrite = spans.span("phase.rewrite")
     for ctg in bam.references:
-        t0 = time.perf_counter()
         # two STREAMING passes per contig over the BAI-indexed block range:
         # pass 1 keeps only (read name, het-site alleles) -- a few bytes per
         # read -- and pass 2 rewrites records one at a time, so peak RSS is
         # bounded by one decompressed block, not a contig's records
         # (measured on the JAX package's copy of this loop:
         # tests/test_phasing.py::test_phasing_rss_bounded)
-        if ctg not in contig_set:
+        hp_by_name = {}
+        if ctg in contig_set:
+            with spans.span("phase.scan"):
+                sites = het_snvs_from_vcf(vcf, ctg)
+                site_positions = np.asarray([s.pos for s in sites],
+                                            dtype=np.int64)
+                site_lookup = {s.pos: i for i, s in enumerate(sites)}
+                names, alleles_per_read = [], []
+                for r in bam.fetch(ctg):
+                    if (r.flag & exclude_flags) or r.mapq < min_mq:
+                        continue
+                    names.append(r.name)
+                    alleles_per_read.append(
+                        read_alleles(r, site_positions, site_lookup, sites))
+            with spans.span("phase.link"):
+                phase, block = phase_sites_pairwise(alleles_per_read,
+                                                    len(sites))
+                hp = assign_read_haplotypes(alleles_per_read, phase, block)
+                hp_by_name = {n: h for n, h in zip(names, hp)}
+                del names, alleles_per_read
+            n_sites += len(sites)
+            if len(sites):
+                n_blocks += int((np.bincount(block) >= 2).sum())
+        with rewrite:
             for rec in bam.fetch(ctg):
+                n_read += 1
+                h = hp_by_name.get(rec.name, 0)
+                if h:
+                    rec.tags["HP"] = h
                 writer.write(rec)
-            secs["rewrite"] += time.perf_counter() - t0
-            continue
-        sites = het_snvs_from_vcf(vcf, ctg)
-        site_positions = np.asarray([s.pos for s in sites], dtype=np.int64)
-        site_lookup = {s.pos: i for i, s in enumerate(sites)}
-        names, alleles_per_read = [], []
-        for r in bam.fetch(ctg):
-            if (r.flag & exclude_flags) or r.mapq < min_mq:
-                continue
-            names.append(r.name)
-            alleles_per_read.append(
-                read_alleles(r, site_positions, site_lookup, sites))
-        t1 = time.perf_counter()
-        phase, block = phase_sites_pairwise(alleles_per_read, len(sites))
-        hp = assign_read_haplotypes(alleles_per_read, phase, block)
-        hp_by_name = {n: h for n, h in zip(names, hp)}
-        del names, alleles_per_read
-        t2 = time.perf_counter()
-        secs["scan"] += t1 - t0
-        secs["phase"] += t2 - t1
-        for rec in bam.fetch(ctg):
-            h = hp_by_name.get(rec.name, 0)
-            if h:
-                rec.tags["HP"] = h
-                n_tagged += 1
-            n_total += 1
-            writer.write(rec)
-        secs["rewrite"] += time.perf_counter() - t2
-    t0 = time.perf_counter()
-    writer.close()
-    secs["rewrite"] += time.perf_counter() - t0
-    logger.info("[INFO] haplotagged %d/%d reads -> %s (host seconds: scan "
-                "%.3f, phase %.3f, rewrite %.3f)", n_tagged, n_total,
-                output_bam_path, secs["scan"], secs["phase"],
-                secs["rewrite"])
-    return output_bam_path
+                tagged[h] += 1
+    with rewrite:
+        writer.close()
+        # rebuilt on every rewrite: an index left by an earlier tagged BAM
+        # at this path would be stale
+        build_index(output_bam_path)
+    spans.note(records_read=n_read, records_written=sum(tagged),
+               tagged_hp1=tagged[1], tagged_hp2=tagged[2], het_sites=n_sites,
+               phase_blocks=n_blocks)
 
 
 def _external_phase_and_haplotag(bam_path, ref_path, vcf_path,

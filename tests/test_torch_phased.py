@@ -303,3 +303,71 @@ def test_marker_mismatch_redoes_phasing(dataset, jax_run, port_host_run,
     assert json.load(open(marker))["vcf_body_sha1"] != "0" * 40
     assert _body(os.path.join(out, "output_enable_phasing.vcf")) == \
         _body(os.path.join(jax_run, "output_enable_phasing.vcf"))
+
+
+def test_second_pass_with_loaded_weights(dataset, port_host_run, tmp_path):
+    """caller/driver.run_second_pass, the function `call
+    --enable_phasing_model` runs, given the phased weights already loaded
+    and the first pass's VCF, writes the two-pass run's phased body and
+    tagged records. Its phase + haplotag record: the four spans (the
+    three inside `phase`, `phase` inside phase_s), records written equal
+    records read, tagged reads within them, the same counters as the
+    call's; under a profiler each span is a range on the calling
+    thread."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from clair3_rna_torch.caller.decode import CallConfig
+    from clair3_rna_torch.caller.driver import run_second_pass
+    from clair3_rna_torch.config import PileupConfig
+    from clair3_rna_torch.io.bam import BamReader
+    from clair3_rna_torch.models.network import make_wire_forward_fn
+    from clair3_rna_torch.models.params_io import (load_params,
+                                                   params_from_numpy)
+
+    first_out, call_stats = port_host_run
+    params = params_from_numpy(load_params(dataset["phased_weights"]),
+                               device="cpu")
+    _, forward = make_wire_forward_fn()
+    out = str(tmp_path)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        outputs, stats = run_second_pass(
+            dataset["bam"], dataset["fasta"],
+            os.path.join(first_out, "output.vcf"), out,
+            cfg=PileupConfig(batch_size=32), call_cfg=CallConfig(),
+            params=params, forward=forward, contigs=["chr1"],
+            chunk_size=10000, compress=False, progress=False,
+            pileup_backend="host", device="cpu")
+    assert outputs[0] == os.path.join(out, "output_enable_phasing.vcf")
+    assert _body(outputs[0]) == \
+        _body(os.path.join(first_out, "output_enable_phasing.vcf"))
+    tagged = os.path.join(out, "phased_tagged.bam")
+    assert _records(BamReader, tagged) == _records(
+        BamReader, os.path.join(first_out, "phased_tagged.bam"))
+    assert os.path.exists(tagged + ".bai")
+    assert json.load(open(tagged + ".done.json"))["first_pass_vcf"] == \
+        os.path.join(first_out, "output.vcf")
+
+    ph = stats.phase
+    inner = ph["scan_s"] + ph["link_s"] + ph["rewrite_s"]
+    assert min(ph["scan_s"], ph["link_s"], ph["rewrite_s"]) > 0
+    assert inner <= ph["phase_s"] <= stats.phase_s
+    assert ph["records_written"] == ph["records_read"] > 0
+    tagged_reads = ph["tagged_hp1"] + ph["tagged_hp2"]
+    assert 0 < tagged_reads <= ph["records_written"]
+    assert ph["tagged_hp1"] > 0 and ph["tagged_hp2"] > 0
+    assert 0 < ph["phase_blocks"] <= ph["het_sites"] // 2
+    hp = [r[-1].get("HP", 0) for r in _records(BamReader, tagged)]
+    assert (hp.count(1), hp.count(2), len(hp)) == (
+        ph["tagged_hp1"], ph["tagged_hp2"], ph["records_written"])
+    counters = {k: v for k, v in ph.items() if not k.endswith("_s")}
+    assert counters == {k: v for k, v in call_stats.phased.phase.items()
+                        if not k.endswith("_s")}
+
+    threads = {}
+    for e in prof.events():
+        if e.name.startswith("phase") or e.name == "call.head":
+            threads.setdefault(e.name, set()).add(e.thread)
+    assert set(threads) == {"phase", "phase.scan", "phase.link",
+                            "phase.rewrite", "call.head"}
+    # one thread: the one that ran the re-call's head
+    assert len(set().union(*threads.values())) == 1
