@@ -219,6 +219,13 @@ class BamReader:
             self._bai = builder.finish()
         return self._bai
 
+    def chunks(self, contig: str, start: int = 0, end: int | None = None):
+        """The BAI's (vbeg, vend) virtual-offset chunks that fetch walks for
+        [start, end) on contig."""
+        if end is None:
+            end = self.reference_lengths[contig]
+        return self._ensure_index().query(self.ref_index[contig], start, end)
+
     def fetch(self, contig: str, start: int = 0, end: int | None = None,
               exclude_flags: int = 0, min_mapq: int = 0):
         """Yield records overlapping [start, end) on contig (0-based).
@@ -229,8 +236,7 @@ class BamReader:
         want_ref = self.ref_index[contig]
         if end is None:
             end = self.reference_lengths[contig]
-        bai = self._ensure_index()
-        for vbeg, vend in bai.query(want_ref, start, end):
+        for vbeg, vend in self.chunks(contig, start, end):
             for rec, voff in self._records_from(vbeg):
                 if rec.ref_id != want_ref or rec.pos >= end:
                     return  # coordinate-sorted: nothing later can overlap
@@ -241,24 +247,31 @@ class BamReader:
                     break
 
 
+def header_bytes(references: list[tuple[str, int]],
+                 header_text: str | None = None) -> bytes:
+    """The uncompressed BAM header BamWriter writes: magic, text (an @HD and
+    @SQ lines where none is given) and the reference list."""
+    if header_text is None:
+        lines = ["@HD\tVN:1.6\tSO:coordinate"]
+        lines += [f"@SQ\tSN:{n}\tLN:{l}" for n, l in references]
+        header_text = "\n".join(lines) + "\n"
+    text = header_text.encode()
+    out = bytearray(b"BAM\x01")
+    out += struct.pack("<i", len(text)) + text
+    out += struct.pack("<i", len(references))
+    for name, length in references:
+        nb = name.encode() + b"\x00"
+        out += struct.pack("<i", len(nb)) + nb + struct.pack("<i", length)
+    return bytes(out)
+
+
 class BamWriter:
     def __init__(self, path: str, references: list[tuple[str, int]],
                  header_text: str | None = None, threads: int = 1):
         self._w = BgzfWriter(path, threads=threads)
         self.references = references
         self.ref_index = {name: i for i, (name, _) in enumerate(references)}
-        if header_text is None:
-            lines = ["@HD\tVN:1.6\tSO:coordinate"]
-            lines += [f"@SQ\tSN:{n}\tLN:{l}" for n, l in references]
-            header_text = "\n".join(lines) + "\n"
-        text = header_text.encode()
-        out = bytearray(b"BAM\x01")
-        out += struct.pack("<i", len(text)) + text
-        out += struct.pack("<i", len(references))
-        for name, length in references:
-            nb = name.encode() + b"\x00"
-            out += struct.pack("<i", len(nb)) + nb + struct.pack("<i", length)
-        self._w.write(bytes(out))
+        self._w.write(header_bytes(references, header_text))
 
     @staticmethod
     def _encode_tags(tags: dict) -> bytes:

@@ -139,6 +139,17 @@ class _TileOut(ctypes.Structure):
     ]
 
 
+class _HetScanOut(ctypes.Structure):
+    _fields_ = [
+        ("n_reads", ctypes.c_int64),
+        ("name_blob", ctypes.POINTER(ctypes.c_char)),
+        ("name_off", ctypes.POINTER(ctypes.c_int64)),
+        ("allele_off", ctypes.POINTER(ctypes.c_int64)),
+        ("allele_site", ctypes.POINTER(ctypes.c_int32)),
+        ("allele_val", ctypes.POINTER(ctypes.c_int8)),
+    ]
+
+
 def _build_library():
     # build to a private name and rename into place: concurrent test
     # workers may build at once, and a half-written .so must never load
@@ -198,6 +209,24 @@ def get_library():
             ctypes.c_double, ctypes.c_double, ctypes.c_int32, ctypes.c_int32,
             ctypes.c_int32]
         lib.free_finalize_native.argtypes = [ctypes.POINTER(_FinalizeOut)]
+        lib.het_scan_native.restype = ctypes.c_int32
+        lib.het_scan_native.argtypes = [
+            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.POINTER(_HetScanOut))]
+        lib.free_het_scan_native.argtypes = [ctypes.POINTER(_HetScanOut)]
+        lib.haplotag_writer_open.restype = ctypes.c_void_p
+        lib.haplotag_writer_open.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32]
+        lib.haplotag_rewrite_contig.restype = ctypes.c_int32
+        lib.haplotag_rewrite_contig.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int64, ctypes.c_char_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p]
+        lib.haplotag_writer_close.restype = ctypes.c_int32
+        lib.haplotag_writer_close.argtypes = [ctypes.c_void_p]
         _lib = lib
     except Exception as exc:  # missing g++/zlib: fall back to Python
         _load_error = exc
@@ -428,6 +457,97 @@ class NativeBam:
         if ref_codes is not None:
             return tile, indels, fin
         return tile, indels
+
+
+class NativeUnsupported(RuntimeError):
+    """The phase + haplotag calls met input they leave to the Python path:
+    one the Python reader or writer raises on, or a record they do not
+    copy."""
+
+
+def _check(rc, what):
+    if rc == 1:
+        raise OSError(f"{what}: cannot read or write")
+    if rc:
+        raise NativeUnsupported(f"{what}: a record left to the Python path")
+
+
+def _chunk_array(chunks):
+    return np.ascontiguousarray(np.asarray(chunks, dtype=np.uint64)
+                                .reshape(-1, 2))
+
+
+def het_scan(bam_path, chunks, ref_id, ref_end, sites, exclude_flags,
+             min_mq):
+    """phasing/pipeline.py's scan of one contig in C++: for each record
+    BamReader.fetch yields over `chunks` (BamReader.chunks) with no flag of
+    exclude_flags and mapq >= min_mq, its name (bytes) and
+    phase.read_alleles' (site index, allele) pairs over `sites` (sorted
+    HetSites). -> (names, alleles_per_read)."""
+    lib = get_library()
+    ch = _chunk_array(chunks)
+    pos = np.ascontiguousarray([s.pos for s in sites], dtype=np.int64)
+    # the VCF's bases as written; one outside ASCII matches no read base
+    base = [np.ascontiguousarray(
+        [c if c < 128 else 0 for c in (ord(getattr(s, k)) for s in sites)],
+        dtype=np.uint8) for k in ("ref", "alt")]
+    out = ctypes.POINTER(_HetScanOut)()
+    _check(lib.het_scan_native(
+        bam_path.encode(), ch.ctypes.data, len(ch), ref_id, ref_end,
+        pos.ctypes.data, base[0].ctypes.data, base[1].ctypes.data,
+        len(sites), exclude_flags, min_mq, ctypes.byref(out)), bam_path)
+    try:
+        o = out.contents
+        n = o.n_reads
+        name_off = _copy(o.name_off, n + 1, np.int64).tolist()
+        blob = ctypes.string_at(o.name_blob, name_off[-1])
+        allele_off = _copy(o.allele_off, n + 1, np.int64).tolist()
+        pairs = list(zip(
+            _copy(o.allele_site, allele_off[-1], np.int32).tolist(),
+            _copy(o.allele_val, allele_off[-1], np.int8).tolist()))
+    finally:
+        lib.free_het_scan_native(out)
+    names = [blob[name_off[i]:name_off[i + 1]] for i in range(n)]
+    alleles = [pairs[allele_off[i]:allele_off[i + 1]] for i in range(n)]
+    return names, alleles
+
+
+class HaplotagWriter:
+    """The tagged BAM written in C++: `header` (io/bam.header_bytes), then
+    each contig's records as BamWriter.write writes them, in io/bgzf.py's
+    blocks, deflated on a pool of threads with at most `window_blocks`
+    blocks in memory."""
+
+    def __init__(self, path, header, window_blocks):
+        self._lib = get_library()
+        self.path = path
+        self._handle = self._lib.haplotag_writer_open(
+            path.encode(), header, len(header), window_blocks)
+        if not self._handle:
+            raise OSError(f"{path}: cannot write")
+
+    def rewrite_contig(self, bam_path, chunks, ref_id, ref_end, hp_by_name):
+        """Every record BamReader.fetch yields over `chunks`, tagged HP h
+        where hp_by_name (bytes name -> h) has h != 0.
+        -> (records written, tagged HP 1, tagged HP 2)."""
+        tagged = [(n, h) for n, h in hp_by_name.items() if h]
+        names = b"".join(n for n, _ in tagged)
+        off = np.zeros(len(tagged) + 1, dtype=np.int64)
+        off[1:] = np.cumsum(np.fromiter((len(n) for n, _ in tagged),
+                                        np.int64, len(tagged)))
+        hp = np.ascontiguousarray([h for _, h in tagged], dtype=np.int8)
+        ch = _chunk_array(chunks)
+        counts = np.zeros(3, dtype=np.int64)
+        _check(self._lib.haplotag_rewrite_contig(
+            self._handle, bam_path.encode(), ch.ctypes.data, len(ch),
+            ref_id, ref_end, names, off.ctypes.data, hp.ctypes.data,
+            len(tagged), counts.ctypes.data), bam_path)
+        return tuple(int(c) for c in counts)
+
+    def close(self):
+        if self._handle:
+            handle, self._handle = self._handle, None
+            _check(self._lib.haplotag_writer_close(handle), self.path)
 
 
 def native_available() -> bool:

@@ -13,11 +13,16 @@
 
 #include <algorithm>
 #include <atomic>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <deque>
+#include <memory>
+#include <mutex>
 #include <string>
+#include <string_view>
 #include <thread>
 #include <unordered_map>
 #include <vector>
@@ -2065,6 +2070,801 @@ void free_events_native(EventsOut* out) {
   free(out->read_start_count); free(out->read_end_count);
   free(out->skip_fwd_count); free(out->skip_rev_count); free(out->cover_count);
   delete out;
+}
+
+}  // extern "C"
+
+// --- phase + haplotag on raw records ------------------------------------------
+//
+// The builtin phaser's two passes over the BAM (phasing/pipeline.py), with no
+// record made into a Python object. Both walk a contig's records exactly as
+// io/bam.py's BamReader.fetch(ctg) yields them: over the BAI chunks it
+// queries (passed in), stopping where it stops, and dropping the records it
+// drops (reference end 0). The scan returns each kept read's name and its
+// (het site, allele) pairs, as phase.read_alleles gives them. The rewrite
+// writes the bytes BamWriter.write writes -- its normalisation, not a copy of
+// the input -- in io/bgzf.py's blocks, deflated on a pool of threads. Where
+// the Python reader or writer would raise, or meet input this code does not
+// copy (a B-array tag, a truncated record), a call returns HT_UNSUPPORTED
+// and the caller redoes the stage on the Python path.
+
+namespace {
+
+constexpr int32_t HT_OK = 0, HT_IO = 1, HT_UNSUPPORTED = 2;
+constexpr size_t BGZF_BLOCK_DATA = 65280;  // io/bgzf.py _MAX_BLOCK_DATA
+const uint8_t BGZF_EOF_BLOCK[28] = {
+    0x1f, 0x8b, 0x08, 0x04, 0, 0, 0, 0, 0, 0xff, 0x06, 0, 0x42, 0x43,
+    0x02, 0, 0x1b, 0, 0x03, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+
+// Python's strict bytes.decode(): false where it raises; *chars counts the
+// code points.
+bool utf8_valid(const uint8_t* s, size_t n, size_t* chars = nullptr) {
+  size_t i = 0, count = 0;
+  while (i < n) {
+    uint8_t b = s[i];
+    size_t len;
+    uint32_t cp;
+    if (b < 0x80) {
+      len = 1, cp = b;
+    } else if (b >= 0xC2 && b <= 0xDF) {
+      len = 2, cp = b & 0x1F;
+    } else if (b >= 0xE0 && b <= 0xEF) {
+      len = 3, cp = b & 0x0F;
+    } else if (b >= 0xF0 && b <= 0xF4) {
+      len = 4, cp = b & 0x07;
+    } else {
+      return false;
+    }
+    if (i + len > n) return false;
+    for (size_t k = 1; k < len; ++k) {
+      if ((s[i + k] & 0xC0) != 0x80) return false;
+      cp = (cp << 6) | (s[i + k] & 0x3F);
+    }
+    if ((len == 3 && (cp < 0x800 || (cp >= 0xD800 && cp <= 0xDFFF))) ||
+        (len == 4 && (cp < 0x10000 || cp > 0x10FFFF)))
+      return false;
+    i += len;
+    ++count;
+  }
+  if (chars) *chars = count;
+  return true;
+}
+
+// The fields of one record as io/bam.py's _decode_record reads them; false
+// where it would raise or read past the record.
+struct RecordLayout {
+  int32_t ref_id, pos, l_seq;
+  uint8_t mapq;
+  uint16_t n_cigar, flag;
+  size_t name_len;
+  const uint8_t *name, *cigar, *seq, *qual, *tags, *end;
+  int64_t ref_span;
+};
+
+bool layout_of(const uint8_t* body, int32_t len, RecordLayout* r) {
+  if (len < 32) return false;
+  memcpy(&r->ref_id, body, 4);
+  memcpy(&r->pos, body + 4, 4);
+  uint8_t l_read_name = body[8];
+  r->mapq = body[9];
+  memcpy(&r->n_cigar, body + 12, 2);
+  memcpy(&r->flag, body + 14, 2);
+  memcpy(&r->l_seq, body + 16, 4);
+  if (r->l_seq < 0) return false;
+  size_t off = 32;
+  r->name = body + off;
+  r->name_len = l_read_name ? l_read_name - 1 : 0;  // buf[32:32 + l - 1]
+  off += l_read_name;
+  r->cigar = body + off;
+  off += 4 * size_t(r->n_cigar);
+  r->seq = body + off;
+  off += (size_t(r->l_seq) + 1) / 2;
+  r->qual = body + off;
+  off += size_t(r->l_seq);
+  if (off > size_t(len)) return false;
+  r->tags = body + off;
+  r->end = body + len;
+  if (!utf8_valid(r->name, r->name_len)) return false;
+  r->ref_span = 0;
+  for (int k = 0; k < r->n_cigar; ++k) {
+    uint32_t v;
+    memcpy(&v, r->cigar + 4 * k, 4);
+    if ((v & 0xF) > CIGAR_X) return false;  // CONSUMES_REF[op] raises
+    if (consumes_ref(v & 0xF)) r->ref_span += v >> 4;
+  }
+  return true;
+}
+
+// A record's tags as the Python dict holds them (a repeated key keeps its
+// first place and its last value), each kept as BamWriter._encode_tags
+// encodes it: its type byte and payload.
+struct TagList {
+  struct Tag {
+    uint8_t key[2];
+    bool unencodable;  // a B array, an int outside int32: the writer raises
+    uint32_t off, len;
+  };
+  std::vector<Tag> tags;
+  std::vector<uint8_t> data;
+
+  void clear() {
+    tags.clear();
+    data.clear();
+  }
+  // -> the tag's index
+  size_t set(const uint8_t* key, const uint8_t* enc, size_t n, bool bad) {
+    Tag t{{key[0], key[1]}, bad, uint32_t(data.size()), uint32_t(n)};
+    data.insert(data.end(), enc, enc + n);
+    for (size_t i = 0; i < tags.size(); ++i)
+      if (tags[i].key[0] == key[0] && tags[i].key[1] == key[1]) {
+        tags[i] = t;
+        return i;
+      }
+    tags.push_back(t);
+    return tags.size() - 1;
+  }
+  // more bytes onto the value just set
+  void extend(size_t i, const uint8_t* p, size_t n) {
+    data.insert(data.end(), p, p + n);
+    tags[i].len += uint32_t(n);
+  }
+  void set_int(const uint8_t* key, int64_t v) {
+    uint8_t enc[5];
+    if (v >= -128 && v <= 127) {
+      enc[0] = 'c', enc[1] = uint8_t(int8_t(v));
+      set(key, enc, 2, false);
+    } else {
+      int32_t w = int32_t(v);
+      enc[0] = 'i';
+      memcpy(enc + 1, &w, 4);
+      set(key, enc, 5, v < INT32_MIN || v > INT32_MAX);
+    }
+  }
+};
+
+// _parse_tags then _encode_tags' value rules over the tag bytes [p, end).
+// False where _parse_tags raises (a value past the record, a Z string with
+// no NUL, bytes that do not decode, a B array of an unknown subtype).
+bool parse_tags(const uint8_t* p, const uint8_t* end, TagList* out) {
+  out->clear();
+  while (p + 3 <= end) {
+    const uint8_t* key = p;
+    if (!utf8_valid(key, 2)) return false;
+    uint8_t typ = p[2];
+    p += 3;
+    size_t left = size_t(end - p);
+    switch (typ) {
+      case 'A': {  // chr(byte), encoded back as UTF-8
+        if (left < 1) return false;
+        uint8_t enc[3] = {'A', p[0], 0};
+        size_t n = 2;
+        if (p[0] >= 0x80) enc[1] = 0xC0 | (p[0] >> 6), enc[2] = 0x80 | (p[0] & 0x3F), n = 3;
+        out->set(key, enc, n, false);
+        p += 1;
+        break;
+      }
+      case 'c': case 'C': {
+        if (left < 1) return false;
+        out->set_int(key, typ == 'c' ? int64_t(int8_t(p[0])) : int64_t(p[0]));
+        p += 1;
+        break;
+      }
+      case 's': case 'S': {
+        if (left < 2) return false;
+        int16_t s;
+        uint16_t u;
+        memcpy(&s, p, 2);
+        memcpy(&u, p, 2);
+        out->set_int(key, typ == 's' ? int64_t(s) : int64_t(u));
+        p += 2;
+        break;
+      }
+      case 'i': case 'I': {
+        if (left < 4) return false;
+        int32_t s;
+        uint32_t u;
+        memcpy(&s, p, 4);
+        memcpy(&u, p, 4);
+        out->set_int(key, typ == 'i' ? int64_t(s) : int64_t(u));
+        p += 4;
+        break;
+      }
+      case 'f': {  // struct's float -> double -> float round trip
+        if (left < 4) return false;
+        float f;
+        memcpy(&f, p, 4);
+        float g = static_cast<float>(static_cast<double>(f));
+        uint8_t enc[5] = {'f'};
+        memcpy(enc + 1, &g, 4);
+        out->set(key, enc, 5, false);
+        p += 4;
+        break;
+      }
+      case 'Z': case 'H': {  // a str: one character is written as an A tag
+        const uint8_t* nul =
+            static_cast<const uint8_t*>(memchr(p, 0, left));
+        if (!nul) return false;
+        size_t n = size_t(nul - p), chars;
+        if (!utf8_valid(p, n, &chars)) return false;
+        const uint8_t type = chars == 1 ? 'A' : 'Z';
+        out->extend(out->set(key, &type, 1, false), p,
+                    chars == 1 ? n : n + 1);  // a Z string keeps its NUL
+        p = nul + 1;
+        break;
+      }
+      case 'B': {
+        if (left < 5) return false;
+        uint8_t sub = p[0];
+        uint32_t count;
+        memcpy(&count, p + 1, 4);
+        size_t size = (sub == 'c' || sub == 'C') ? 1
+                      : (sub == 's' || sub == 'S') ? 2
+                      : (sub == 'i' || sub == 'I' || sub == 'f') ? 4 : 0;
+        if (!size || size * count > left - 5) return false;
+        out->set(key, p, 0, true);
+        p += 5 + size * count;
+        break;
+      }
+      default:  // an unknown type ends the parse, dropping what follows
+        return true;
+    }
+  }
+  return true;
+}
+
+// One BGZF block read from the file, not yet inflated.
+struct RawBlock {
+  uint64_t coff;
+  std::vector<uint8_t> payload;  // raw deflate
+  uint32_t isize;
+};
+
+// The block at the file's position: 1 read, 0 the file's end (fewer than
+// 12 bytes, where io/bgzf.py BgzfReader ends too), -1 a bad block.
+int read_raw_block(FILE* f, uint64_t coff, RawBlock* b) {
+  uint8_t hdr[12];
+  if (fread(hdr, 1, 12, f) != 12) return 0;
+  if (hdr[0] != 0x1f || hdr[1] != 0x8b) return -1;
+  uint16_t xlen;
+  memcpy(&xlen, hdr + 10, 2);
+  std::vector<uint8_t> extra(xlen);
+  if (xlen && fread(extra.data(), 1, xlen, f) != xlen) return -1;
+  int32_t bsize = -1;
+  for (size_t i = 0; i + 4 <= xlen;) {
+    uint16_t slen;
+    memcpy(&slen, extra.data() + i + 2, 2);
+    if (extra[i] == 0x42 && extra[i + 1] == 0x43 && slen == 2) {
+      uint16_t v;
+      memcpy(&v, extra.data() + i + 4, 2);
+      bsize = v + 1;
+    }
+    i += 4 + slen;
+  }
+  if (bsize < 12 + xlen + 8) return -1;
+  size_t n = bsize - 12 - xlen - 8;
+  b->coff = coff;
+  b->payload.resize(n + 8);
+  if (fread(b->payload.data(), 1, n + 8, f) != n + 8) return -1;
+  memcpy(&b->isize, b->payload.data() + n + 4, 4);
+  b->payload.resize(n);
+  return 1;
+}
+
+// Records from a virtual offset on, with io/bgzf.py BgzfReader's offsets: a
+// record's end offset names the block that held its last byte, so one that
+// ends a block ends at (block << 16) | the block's length. Blocks are read
+// ahead and inflated on several threads; a bad block counts only once the
+// walk needs its bytes, as it does for the Python reader.
+class RecordStream {
+ public:
+  explicit RecordStream(FILE* f) : f_(f) {}
+
+  bool seek(uint64_t voff) {
+    buf_.clear();
+    blocks_.clear();
+    abs_base_ = cur_ = 0;
+    bad_ = eof_ = pending_bad_ = false;
+    next_coff_ = voff >> 16;
+    fseek(f_, static_cast<long>(next_coff_), SEEK_SET);
+    size_t first = 0;
+    if (!load(1, &first)) return !bad_;  // at the end: the stream yields nothing
+    cur_ = voff & 0xFFFF;
+    return cur_ <= first;
+  }
+
+  // 1: a record (body, len valid until the next call; vend its end's
+  // offset); 0: the stream ended; -1: a bad block or a truncated record.
+  int next(const uint8_t** body, int32_t* len, uint64_t* vend) {
+    if (cur_ - abs_base_ > (1u << 20)) compact();
+    if (!need(4)) return bad_ ? -1 : 0;
+    int32_t size;
+    memcpy(&size, buf_.data() + (cur_ - abs_base_), 4);
+    if (size <= 0 || !need(4 + size_t(size))) return -1;
+    *body = buf_.data() + (cur_ - abs_base_) + 4;
+    *len = size;
+    cur_ += 4 + size_t(size);
+    size_t b = blocks_.size() - 1;
+    while (blocks_[b].abs >= cur_) --b;
+    *vend = (blocks_[b].coff << 16) | (cur_ - blocks_[b].abs);
+    return 1;
+  }
+
+ private:
+  struct Block {
+    uint64_t coff;
+    size_t abs, len;
+  };
+  static constexpr size_t kAhead = 64;  // blocks read and inflated at once
+
+  // up to `count` blocks onto the buffer; *first: the first one's length
+  bool load(size_t count, size_t* first = nullptr) {
+    if (pending_bad_) bad_ = true;
+    if (bad_ || eof_) return false;
+    std::vector<RawBlock> raw(count);
+    size_t n = 0;
+    while (n < count) {
+      int r = read_raw_block(f_, next_coff_, &raw[n]);
+      if (r <= 0) {
+        eof_ = r == 0;
+        pending_bad_ = r < 0;
+        break;
+      }
+      next_coff_ = static_cast<uint64_t>(ftell(f_));
+      ++n;
+    }
+    if (n == 0) {
+      bad_ = pending_bad_;
+      return false;
+    }
+    std::vector<size_t> at(n + 1, buf_.size());
+    for (size_t i = 0; i < n; ++i) at[i + 1] = at[i] + raw[i].isize;
+    buf_.resize(at[n]);
+    std::vector<char> ok(n, 1);
+    auto inflate_range = [&](size_t lo, size_t hi) {
+      z_stream zs{};
+      if (inflateInit2(&zs, -15) != Z_OK) {
+        for (size_t i = lo; i < hi; ++i) ok[i] = 0;
+        return;
+      }
+      for (size_t i = lo; i < hi; ++i) {
+        if (!raw[i].isize) continue;
+        inflateReset(&zs);
+        zs.next_in = raw[i].payload.data();
+        zs.avail_in = static_cast<uInt>(raw[i].payload.size());
+        zs.next_out = buf_.data() + at[i];
+        zs.avail_out = raw[i].isize;
+        ok[i] = inflate(&zs, Z_FINISH) == Z_STREAM_END && zs.avail_out == 0;
+      }
+      inflateEnd(&zs);
+    };
+    int hw = static_cast<int>(std::thread::hardware_concurrency());
+    int n_threads = std::max(1, std::min<int>(hw, n / 4));
+    if (n_threads == 1) {
+      inflate_range(0, n);
+    } else {
+      std::vector<std::thread> threads;
+      for (int t = 0; t < n_threads; ++t)
+        threads.emplace_back(inflate_range, n * t / n_threads,
+                             n * (t + 1) / n_threads);
+      for (auto& th : threads) th.join();
+    }
+    size_t good = 0;
+    while (good < n && ok[good]) ++good;
+    if (good < n) {  // keep the blocks before the bad one
+      buf_.resize(at[good]);
+      pending_bad_ = true;
+      eof_ = false;
+      if (good == 0) {
+        bad_ = true;
+        return false;
+      }
+    }
+    for (size_t i = 0; i < good; ++i)
+      if (raw[i].isize)
+        blocks_.push_back({raw[i].coff, abs_base_ + at[i], raw[i].isize});
+    if (first) *first = raw[0].isize;
+    return true;
+  }
+  bool need(size_t n) {
+    while (abs_base_ + buf_.size() < cur_ + n)
+      if (!load(kAhead)) return false;
+    return true;
+  }
+  void compact() {  // drop the bytes and blocks before the cursor
+    buf_.erase(buf_.begin(), buf_.begin() + (cur_ - abs_base_));
+    abs_base_ = cur_;
+    size_t keep = 0;
+    while (keep < blocks_.size() &&
+           blocks_[keep].abs + blocks_[keep].len <= cur_)
+      ++keep;
+    blocks_.erase(blocks_.begin(), blocks_.begin() + keep);
+  }
+
+  FILE* f_;
+  uint64_t next_coff_ = 0;
+  std::vector<uint8_t> buf_;  // inflated bytes from abs_base_ on
+  std::vector<Block> blocks_;
+  size_t abs_base_ = 0, cur_ = 0;
+  bool bad_ = false, eof_ = false, pending_bad_ = false;
+};
+
+// fn(record) for each record BamReader.fetch(contig) yields (start 0, end
+// ref_end) over its BAI chunks (vbeg, vend pairs). Each record it reads is
+// checked as _decode_record would decode it, the one that ends the walk too.
+template <class Fn>
+int32_t walk_contig(const char* path, const uint64_t* chunks, int64_t n_chunks,
+                    int32_t ref_id, int64_t ref_end, Fn&& fn) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return HT_IO;
+  RecordStream rs(f);
+  TagList tags;
+  int32_t status = HT_OK;
+  for (int64_t c = 0; c < n_chunks && status == HT_OK; ++c) {
+    if (!rs.seek(chunks[2 * c])) {
+      status = HT_UNSUPPORTED;
+      break;
+    }
+    for (;;) {
+      const uint8_t* body;
+      int32_t len;
+      uint64_t voff;
+      int r = rs.next(&body, &len, &voff);
+      if (r == 0) break;
+      RecordLayout rec;
+      if (r < 0 || !layout_of(body, len, &rec) ||
+          !parse_tags(rec.tags, rec.end, &tags)) {
+        status = HT_UNSUPPORTED;
+        break;
+      }
+      if (rec.ref_id != ref_id || rec.pos >= ref_end) {
+        fclose(f);
+        return HT_OK;  // coordinate-sorted: nothing later is on the contig
+      }
+      if (rec.pos + rec.ref_span > 0) {
+        status = fn(rec, tags);
+        if (status != HT_OK) break;
+      }
+      if (voff >= chunks[2 * c + 1]) break;
+    }
+  }
+  fclose(f);
+  return status;
+}
+
+// Deflates 65,280-byte blocks on a pool of threads and writes them in order,
+// each as io/bgzf.py _build_block builds it; at most `window` blocks are held.
+class BgzfPoolWriter {
+ public:
+  BgzfPoolWriter(FILE* out, int window)
+      : out_(out), slots_(std::max(1, window)) {
+    for (Slot& s : slots_) s.raw.reserve(BGZF_BLOCK_DATA);
+    int hw = static_cast<int>(std::thread::hardware_concurrency());
+    int n = std::max(1, std::min<int>(hw, slots_.size()));
+    for (int t = 0; t < n; ++t) workers_.emplace_back([this] { work(); });
+  }
+
+  ~BgzfPoolWriter() {
+    {
+      std::lock_guard<std::mutex> lk(mu_);
+      stop_ = true;
+    }
+    work_cv_.notify_all();
+    for (auto& th : workers_) th.join();
+  }
+
+  void put(const uint8_t* p, size_t n) {
+    while (n) {
+      if (filled_ - written_ >= slots_.size()) write_oldest();
+      Slot& s = slots_[filled_ % slots_.size()];
+      size_t take = std::min(n, BGZF_BLOCK_DATA - s.raw.size());
+      s.raw.insert(s.raw.end(), p, p + take);
+      p += take;
+      n -= take;
+      if (s.raw.size() == BGZF_BLOCK_DATA) submit();
+    }
+  }
+
+  // The last partial block, then the EOF block; false on a failed write.
+  bool finish() {
+    if (filled_ - written_ < slots_.size() &&
+        !slots_[filled_ % slots_.size()].raw.empty())
+      submit();
+    while (written_ < filled_) write_oldest();
+    if (fwrite(BGZF_EOF_BLOCK, 1, sizeof BGZF_EOF_BLOCK, out_) !=
+        sizeof BGZF_EOF_BLOCK)
+      failed_ = true;
+    return !failed_;
+  }
+
+ private:
+  struct Slot {
+    std::vector<uint8_t> raw, block;
+    bool queued = false, done = false, ok = false;
+  };
+
+  void submit() {
+    {
+      std::lock_guard<std::mutex> lk(mu_);
+      size_t i = filled_ % slots_.size();
+      slots_[i].queued = true;
+      queue_.push_back(i);
+    }
+    work_cv_.notify_one();
+    ++filled_;
+  }
+
+  void write_oldest() {
+    Slot& s = slots_[written_ % slots_.size()];
+    {
+      std::unique_lock<std::mutex> lk(mu_);
+      done_cv_.wait(lk, [&] { return s.done; });
+      s.queued = s.done = false;
+    }
+    if (!s.ok || fwrite(s.block.data(), 1, s.block.size(), out_) !=
+                     s.block.size())
+      failed_ = true;
+    s.raw.clear();
+    ++written_;
+  }
+
+  void work() {
+    z_stream zs{};
+    bool init = deflateInit2(&zs, 6, Z_DEFLATED, -15, 8,
+                             Z_DEFAULT_STRATEGY) == Z_OK;
+    for (;;) {
+      size_t i;
+      {
+        std::unique_lock<std::mutex> lk(mu_);
+        work_cv_.wait(lk, [&] { return stop_ || !queue_.empty(); });
+        if (queue_.empty()) break;
+        i = queue_.front();
+        queue_.pop_front();
+      }
+      Slot& s = slots_[i];
+      bool ok = init && build(&zs, s.raw, &s.block);
+      {
+        std::lock_guard<std::mutex> lk(mu_);
+        s.ok = ok;
+        s.done = true;
+      }
+      done_cv_.notify_all();
+    }
+    if (init) deflateEnd(&zs);
+  }
+
+  // compressobj(6, DEFLATED, -15): compress(data) then flush(), as Python
+  // calls deflate; the gzip header with its BC field, then CRC32 and ISIZE.
+  static bool build(z_stream* zs, const std::vector<uint8_t>& raw,
+                    std::vector<uint8_t>* block) {
+    if (deflateReset(zs) != Z_OK) return false;
+    size_t bound = deflateBound(zs, raw.size());
+    block->resize(18 + bound + 8);
+    zs->next_in = const_cast<uint8_t*>(raw.data());
+    zs->avail_in = static_cast<uInt>(raw.size());
+    zs->next_out = block->data() + 18;
+    zs->avail_out = static_cast<uInt>(bound);
+    if (deflate(zs, Z_NO_FLUSH) == Z_STREAM_ERROR ||
+        deflate(zs, Z_FINISH) != Z_STREAM_END)
+      return false;
+    size_t payload = zs->total_out;
+    size_t bsize = payload + 25;  // the block's size - 1
+    if (bsize > 0xFFFF) return false;
+    const uint8_t head[16] = {0x1f, 0x8b, 0x08, 0x04, 0, 0, 0, 0,
+                              0, 0xff, 0x06, 0, 0x42, 0x43, 0x02, 0};
+    memcpy(block->data(), head, 16);
+    uint16_t b16 = static_cast<uint16_t>(bsize);
+    memcpy(block->data() + 16, &b16, 2);
+    uint32_t crc = static_cast<uint32_t>(
+        crc32(crc32(0, Z_NULL, 0), raw.data(), static_cast<uInt>(raw.size())));
+    uint32_t isize = static_cast<uint32_t>(raw.size());
+    memcpy(block->data() + 18 + payload, &crc, 4);
+    memcpy(block->data() + 18 + payload + 4, &isize, 4);
+    block->resize(18 + payload + 8);
+    return true;
+  }
+
+  FILE* out_;
+  std::vector<Slot> slots_;
+  size_t filled_ = 0, written_ = 0;  // blocks submitted, blocks written
+  std::deque<size_t> queue_;
+  std::vector<std::thread> workers_;
+  std::mutex mu_;
+  std::condition_variable work_cv_, done_cv_;
+  bool stop_ = false, failed_ = false;
+};
+
+// BamWriter.write's bytes for one record, with `hp` (0: as read) in its HP
+// tag; false where the writer would raise.
+bool encode_record(const RecordLayout& r, TagList* tags, int hp,
+                   std::vector<uint8_t>* out) {
+  if (hp) {
+    const uint8_t key[2] = {'H', 'P'};
+    tags->set_int(key, hp);
+  }
+  for (const auto& t : tags->tags)
+    if (t.unencodable) return false;
+  int64_t ref_end = r.pos + r.ref_span;
+  if (r.pos < 0) return false;
+  uint32_t bin = bai_reg2bin(r.pos, ref_end ? ref_end : r.pos + 1);
+  if (bin > 0xFFFF) return false;
+  out->clear();
+  auto put = [out](const void* p, size_t n) {
+    const uint8_t* b = static_cast<const uint8_t*>(p);
+    out->insert(out->end(), b, b + n);
+  };
+  int32_t block_size = 0;  // filled in below
+  uint8_t l_read_name = static_cast<uint8_t>(r.name_len + 1);
+  uint16_t bin16 = static_cast<uint16_t>(bin);
+  int32_t no_mate = -1, tlen = 0;
+  put(&block_size, 4);
+  put(&r.ref_id, 4);
+  put(&r.pos, 4);
+  put(&l_read_name, 1);
+  put(&r.mapq, 1);
+  put(&bin16, 2);
+  put(&r.n_cigar, 2);
+  put(&r.flag, 2);
+  put(&r.l_seq, 4);
+  put(&no_mate, 4);
+  put(&no_mate, 4);
+  put(&tlen, 4);
+  put(r.name, r.name_len);
+  out->push_back(0);
+  put(r.cigar, 4 * size_t(r.n_cigar));
+  size_t seq_bytes = (size_t(r.l_seq) + 1) / 2;
+  put(r.seq, seq_bytes);
+  if (r.l_seq & 1) out->back() &= 0xF0;  // the writer pads with code 0
+  put(r.qual, size_t(r.l_seq));
+  for (const auto& t : tags->tags) {
+    put(t.key, 2);
+    put(tags->data.data() + t.off, t.len);
+  }
+  block_size = static_cast<int32_t>(out->size() - 4);
+  memcpy(out->data(), &block_size, 4);
+  return true;
+}
+
+struct HaplotagWriter {
+  FILE* out = nullptr;
+  std::unique_ptr<BgzfPoolWriter> bgzf;
+  std::vector<uint8_t> record;
+};
+
+}  // namespace
+
+extern "C" {
+
+struct HetScanOut {
+  int64_t n_reads;
+  char* name_blob;
+  int64_t* name_off;    // n_reads + 1
+  int64_t* allele_off;  // n_reads + 1, into allele_site / allele_val
+  int32_t* allele_site;
+  int8_t* allele_val;   // 0 ref, 1 alt
+};
+
+// The phaser's scan of one contig: for every record BamReader.fetch(ctg)
+// yields that has no flag of exclude_flags and mapq >= min_mq, its name and
+// the (site index, allele) pairs phase.read_alleles gives it over the sorted
+// het sites (site_pos; site_ref, site_alt: the VCF's bases as written).
+int32_t het_scan_native(const char* bam_path, const uint64_t* chunks,
+                        int64_t n_chunks, int32_t ref_id, int64_t ref_end,
+                        const int64_t* site_pos, const uint8_t* site_ref,
+                        const uint8_t* site_alt, int64_t n_sites,
+                        int32_t exclude_flags, int32_t min_mq,
+                        HetScanOut** result) {
+  std::vector<char> names;
+  std::vector<int64_t> name_off{0}, allele_off{0};
+  std::vector<int32_t> sites;
+  std::vector<int8_t> vals;
+  const int64_t* pos_end = site_pos + n_sites;
+  int32_t status = walk_contig(
+      bam_path, chunks, n_chunks, ref_id, ref_end,
+      [&](const RecordLayout& r, TagList&) {
+        if ((r.flag & exclude_flags) || r.mapq < min_mq) return HT_OK;
+        int64_t qpos = 0, rpos = r.pos;
+        for (int k = 0; k < r.n_cigar; ++k) {
+          uint32_t v;
+          memcpy(&v, r.cigar + 4 * k, 4);
+          int op = v & 0xF;
+          int64_t len = v >> 4;
+          if (op == CIGAR_M || op == CIGAR_EQ || op == CIGAR_X) {
+            const int64_t* lo = std::lower_bound(site_pos, pos_end, rpos);
+            const int64_t* hi = std::lower_bound(lo, pos_end, rpos + len);
+            for (const int64_t* s = lo; s < hi; ++s) {
+              int64_t q = qpos + (*s - rpos);
+              if (q >= r.l_seq) return HT_UNSUPPORTED;  // seq[q] raises
+              uint8_t base = SEQ_NT16[(r.seq[q >> 1] >> ((~q & 1) << 2)) & 0xF];
+              int64_t si = s - site_pos;
+              if (base == site_alt[si] || base == site_ref[si]) {
+                sites.push_back(static_cast<int32_t>(si));
+                vals.push_back(base == site_alt[si] ? 1 : 0);
+              }
+            }
+            qpos += len;
+            rpos += len;
+          } else if (op == CIGAR_D || op == CIGAR_N) {
+            rpos += len;
+          } else if (op == CIGAR_I || op == CIGAR_S) {
+            qpos += len;
+          }
+        }
+        names.insert(names.end(), r.name, r.name + r.name_len);
+        name_off.push_back(static_cast<int64_t>(names.size()));
+        allele_off.push_back(static_cast<int64_t>(sites.size()));
+        return HT_OK;
+      });
+  if (status != HT_OK) return status;
+  auto* out = new HetScanOut();
+  out->n_reads = static_cast<int64_t>(name_off.size() - 1);
+  out->name_blob = steal(names);
+  out->name_off = steal(name_off);
+  out->allele_off = steal(allele_off);
+  out->allele_site = steal(sites);
+  out->allele_val = steal(vals);
+  *result = out;
+  return HT_OK;
+}
+
+void free_het_scan_native(HetScanOut* out) {
+  if (!out) return;
+  free(out->name_blob); free(out->name_off); free(out->allele_off);
+  free(out->allele_site); free(out->allele_val);
+  delete out;
+}
+
+// The tagged BAM's writer: `header` (BamWriter's header bytes) first, then
+// haplotag_rewrite_contig's records; at most window_blocks blocks in memory.
+void* haplotag_writer_open(const char* out_path, const uint8_t* header,
+                           int64_t header_len, int32_t window_blocks) {
+  FILE* out = fopen(out_path, "wb");
+  if (!out) return nullptr;
+  auto* w = new HaplotagWriter();
+  w->out = out;
+  w->bgzf = std::make_unique<BgzfPoolWriter>(out, window_blocks);
+  w->bgzf->put(header, static_cast<size_t>(header_len));
+  return w;
+}
+
+// Every record BamReader.fetch(ctg) yields, as BamWriter.write writes it,
+// the reads named in names (blob, name_off[n_names + 1]) tagged with their
+// hp (1 or 2). counts: records written, of them tagged HP 1, HP 2.
+int32_t haplotag_rewrite_contig(void* handle, const char* bam_path,
+                                const uint64_t* chunks, int64_t n_chunks,
+                                int32_t ref_id, int64_t ref_end,
+                                const char* names, const int64_t* name_off,
+                                const int8_t* hp, int64_t n_names,
+                                int64_t* counts) {
+  auto* w = static_cast<HaplotagWriter*>(handle);
+  std::unordered_map<std::string_view, int8_t> hp_of;
+  hp_of.reserve(static_cast<size_t>(n_names));
+  for (int64_t i = 0; i < n_names; ++i)
+    hp_of[std::string_view(names + name_off[i],
+                           name_off[i + 1] - name_off[i])] = hp[i];
+  counts[0] = counts[1] = counts[2] = 0;
+  return walk_contig(
+      bam_path, chunks, n_chunks, ref_id, ref_end,
+      [&](const RecordLayout& r, TagList& tags) {
+        auto it = hp_of.find(std::string_view(
+            reinterpret_cast<const char*>(r.name), r.name_len));
+        int h = it == hp_of.end() ? 0 : it->second;
+        if (!encode_record(r, &tags, h, &w->record)) return HT_UNSUPPORTED;
+        w->bgzf->put(w->record.data(), w->record.size());
+        ++counts[0];
+        if (h == 1 || h == 2) ++counts[h];
+        return HT_OK;
+      });
+}
+
+// Flushes the last block and the EOF block, closes the file and frees the
+// writer; HT_IO where a write failed.
+int32_t haplotag_writer_close(void* handle) {
+  auto* w = static_cast<HaplotagWriter*>(handle);
+  bool ok = w->bgzf->finish();
+  w->bgzf.reset();
+  ok = fclose(w->out) == 0 && ok;
+  delete w;
+  return ok ? HT_OK : HT_IO;
 }
 
 }  // extern "C"

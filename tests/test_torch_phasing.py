@@ -115,13 +115,16 @@ def test_switch_error_rate_metric():
 
 @pytest.fixture(scope="module")
 def hp_dataset(tmp_path_factory):
-    """tests/test_phasing.py:56's dataset: chr1 60 kb, 150 SNVs with the
-    alt on either haplotype, depth 30, reads carrying their true HP; plus a
-    first-pass-like VCF of every planted variant and some rows that
-    het_snvs_from_vcf must skip."""
+    return make_hp_dataset(tmp_path_factory.mktemp("torch_phasing"))
+
+
+def make_hp_dataset(tmp):
+    """tests/test_phasing.py:56's dataset in directory `tmp`: chr1 60 kb,
+    150 SNVs with the alt on either haplotype, depth 30, reads carrying
+    their true HP; plus a first-pass-like VCF of every planted variant and
+    some rows that het_snvs_from_vcf must skip."""
     from clair3_rna_torch.io.fasta import write_fasta
 
-    tmp = tmp_path_factory.mktemp("torch_phasing")
     rng = random.Random(17)
     genome = simdata.random_genome(rng, [("chr1", 60_000)])
     variants = simdata.plant_variants(rng, genome, n_per_contig=150,
